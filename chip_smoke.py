@@ -1,0 +1,554 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``dense_visual_odometry_torch``) on one GPU.
+
+Run from the root of a checkout, on a machine with a CUDA GPU and nvcc:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. environment: torch, CUDA, nvcc, triton, and the card's name and power limit;
+2. build: compiles ``ops/cuda/csrc/*.cu`` for sm_90a, one nvcc per source, all
+   started together;
+3. kernels: each CUDA kernel against its plain PyTorch version on the same
+   inputs on the card, at the 640x480 main path's level shapes (B=8), with
+   the tolerances stated in ``TOLERANCES``; kernel and plain times;
+4. main path: ``batched_track_pair`` at B=64 on ``configs/tpu_fast.json`` and
+   ``configs/tpu_parity.json``, and a 16-frame ``OdometrySession`` on
+   ``tpu_fast``, over a seeded synthetic 640x480 scene with exact ground
+   truth; the kernels' launch counts are zeroed just before this phase and
+   read just after it; two pairs are cross-checked against the port's CPU
+   plain path.
+
+Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers, and
+last ``{"ok": true, "device": {...}}``.  A failed check raises and exits
+non-zero before that line; without a GPU the script exits non-zero at once.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from dense_visual_odometry_torch.camera import CameraModel
+from dense_visual_odometry_torch.config import RobustDVOConfig
+from dense_visual_odometry_torch.io import synthetic
+from dense_visual_odometry_torch.models import robust
+from dense_visual_odometry_torch.models.session import OdometrySession
+from dense_visual_odometry_torch.ops.cuda import build
+from dense_visual_odometry_torch.ops.cuda.fused_iter import (
+    fused_iteration,
+    fused_iteration_plain,
+)
+from dense_visual_odometry_torch.ops.cuda.level_solver import (
+    level_inputs,
+    lm_level,
+    lm_level_plain,
+)
+from dense_visual_odometry_torch.ops.shiftwarp import residual_displacements
+from dense_visual_odometry_torch.parallel import batched_track_pair, stack_frame_data
+from dense_visual_odometry_torch.utils.lie import se3
+
+ROOT = Path(__file__).resolve().parent
+CONFIGS = ROOT / "configs"
+HEIGHT, WIDTH, LEVELS = 480, 640, 4
+N_FRAMES = 16
+KERNEL_BATCH = 8
+MAIN_BATCH = 64
+SEED = 0
+
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and FP32
+# (non-tensor-core) operations/s; the kernels do plain FP32 arithmetic.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_PER_S = 67e12
+# FP32 operations per pixel per evaluation, counted from csrc/ (lower bounds):
+# the warp of a template point (3x3 rotation + translation, projection,
+# displacement, ball and bounds tests) on every pixel; on a valid pixel the
+# <= 4 tent taps and the residual (29), the t-scale fixed point (7 per step,
+# 3 steps) and the weighted normal equations (21 + 6 products and sums, the
+# weight and error: 67), ~120 in all.
+OPS_WARP = 40
+OPS_VALID = 120
+
+# Kernel against plain version: same inputs, same arithmetic; only the order
+# of the block-wide sums differs.  Poses in metres / rotation entries; sums
+# relative to the largest magnitude of their field.
+TOLERANCES = {"pose_atol": 1e-4, "sum_rtol": 1e-4, "scale_rtol": 1e-3}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def phase_environment(smi: str) -> dict:
+    nvcc = build.nvcc_path()
+    nvcc_version = subprocess.run(
+        [nvcc, "--version"], capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip().splitlines()[-1]
+    try:
+        import triton  # noqa: F401
+
+        have_triton = True
+    except ImportError:
+        have_triton = False
+    info = {
+        "phase": "environment",
+        "python": sys.version.split()[0],
+        "torch": torch.__version__,
+        "torch_cuda": torch.version.cuda,
+        "nvcc": nvcc,
+        "nvcc_version": nvcc_version,
+        "triton": have_triton,
+        "device": torch.cuda.get_device_name(0),
+        "device_count": torch.cuda.device_count(),
+        "nvidia_smi": smi,
+        "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+        "tf32_cudnn": torch.backends.cudnn.allow_tf32,
+    }
+    if info["tf32_matmul"] or info["tf32_cudnn"]:
+        raise AssertionError("TF32 must be off: the geometry runs in full f32")
+    return info
+
+
+def phase_build() -> dict:
+    names = ("level_solver", "fused_iter")
+    t0 = time.perf_counter()
+    paths = build.build(names)
+    seconds = time.perf_counter() - t0
+    registers = {
+        n: [ln.strip() for ln in build.build_logs.get(n, "").splitlines() if "registers" in ln]
+        for n in names
+    }
+    return {
+        "phase": "build",
+        "seconds": seconds,
+        "compiled": sorted(build.build_logs),
+        "libraries": {n: str(p.relative_to(ROOT)) for n, p in paths.items()},
+        "ptxas": registers,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Data: a seeded 640x480 scene, a 16-frame hand-held trajectory, exact truth.
+# ---------------------------------------------------------------------------
+
+
+def make_sequence():
+    gray, depth, k = synthetic.textured_scene(HEIGHT, WIDTH, seed=SEED)
+    poses = synthetic.handheld_trajectory(N_FRAMES, seed=SEED)
+    grays, depths = synthetic.render_sequence(gray, depth, k, poses)
+    return grays, depths, k, poses
+
+
+def gt_transform(poses, i, j) -> np.ndarray:
+    """Maps camera_i points into camera_j (the tracker's convention)."""
+    return np.linalg.inv(poses[j]) @ poses[i]
+
+
+def pose_errors(est: np.ndarray, gt: np.ndarray):
+    """-> (translation error m, rotation error rad) of est against gt."""
+    e = np.linalg.inv(gt.astype(np.float64)) @ est.astype(np.float64)
+    r = e[..., :3, :3]
+    skew = np.stack([r[..., 2, 1] - r[..., 1, 2], r[..., 0, 2] - r[..., 2, 0],
+                     r[..., 1, 0] - r[..., 0, 1]], axis=-1)
+    ang = np.arctan2(0.5 * np.linalg.norm(skew, axis=-1),
+                     0.5 * (np.trace(r, axis1=-2, axis2=-1) - 1))
+    return np.linalg.norm(e[..., :3, 3], axis=-1), ang
+
+
+# ---------------------------------------------------------------------------
+# Kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, reps: int, dev) -> float:
+    """Median device time of ``fn`` over ``reps`` runs, each after writing a
+    buffer larger than the 50 MB L2 so that the inputs come from HBM, as
+    they do on the main path."""
+    flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def field_errors(a: torch.Tensor, b: torch.Tensor, cols) -> dict:
+    out = {}
+    for name, sl in cols.items():
+        x, y = a[:, sl].double(), b[:, sl].double()
+        diff = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        out[name] = {"max_abs": diff, "max_rel": diff / max(scale, 1e-30)}
+    return out
+
+
+LEVEL_FIELDS = {
+    "est": slice(0, 12), "anchor": slice(16, 28), "wlam": slice(32, 33),
+    "lm_lambda": slice(33, 34), "err": slice(34, 35), "count": slice(35, 36),
+    "iterations": slice(36, 37),
+}
+FUSED_FIELDS = {
+    "H": slice(0, 36), "b": slice(36, 42), "err_sum": slice(42, 43),
+    "count": slice(43, 44), "lam": slice(44, 45), "bias_s": slice(45, 46),
+    "bias_rho": slice(46, 47), "bias_g": slice(47, 53),
+}
+
+
+def kernel_batch(frames, poses, dev):
+    """B pairs (i, i+1) for the kernel checks, with the true transforms."""
+    pairs = [(i, i + 1) for i in range(KERNEL_BATCH)]
+    prev = stack_frame_data([frames[i] for i, _ in pairs])
+    curr = stack_frame_data([frames[j] for _, j in pairs])
+    gt = torch.as_tensor(
+        np.stack([gt_transform(poses, i, j) for i, j in pairs]), dtype=torch.float32,
+        device=dev,
+    )
+    return prev, curr, gt
+
+
+def start_estimates(gt: torch.Tensor, level: int) -> torch.Tensor:
+    """Level-start estimates: identity at the coarsest level; at level 0 the
+    truth off by a seeded ~2 mm / 0.1 deg, as a coarse level leaves it."""
+    b = gt.shape[0]
+    if level == LEVELS - 1:
+        return torch.eye(4, device=gt.device).expand(b, 4, 4).contiguous()
+    rng = np.random.default_rng(SEED + level)
+    xi = np.concatenate(
+        [rng.normal(0, 2e-3, (b, 3)), rng.normal(0, 2e-3, (b, 3))], axis=1
+    ).astype(np.float32)
+    return se3.exp(torch.as_tensor(xi, device=gt.device)) @ gt
+
+
+def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel):
+    cfg = RobustDVOConfig.from_json(CONFIGS / "tpu_fast.json")
+    s = cfg.stride_for_level(level)
+    k = cam.at(level).to(dev)
+    est0 = start_estimates(gt, level)
+    fl = robust.frozen_level(
+        prev.gray[level], prev.depth_m[level], curr.gray[level], k, est0, cfg, level
+    )
+    b = est0.shape[0]
+    wlam0 = torch.full((b,), 1.0 / cfg.weighter.initial_sigma**2, device=dev)
+    relt = None if rel is None else torch.full((b,), rel, device=dev)
+    points, scal = level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0, relt, s)
+    kwargs = dict(
+        radius=cfg.shift_stack_radius, grid_stride=s,
+        image_h=curr.gray[level].shape[-2], image_w=curr.gray[level].shape[-1],
+        dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
+        use_tweights=cfg.use_weighter, normalize_scale=cfg.weighter.normalize_scale,
+        tolerance=cfg.tolerance, lm_lambda0=cfg.lm_lambda0, lm_up=cfg.lm_up,
+        lm_down=cfg.lm_down, lm_lambda_max=cfg.lm_lambda_max,
+        max_iterations=cfg.max_iterations_for_level(level),
+        illum_bias=illum == "bias",
+    )
+    args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
+    out_k = lm_level(*args, **kwargs)
+    out_p = lm_level_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    errs = field_errors(out_k, out_p, LEVEL_FIELDS)
+    its_k = out_k[:, 36].cpu().numpy()
+    its_p = out_p[:, 36].cpu().numpy()
+    ok = (
+        bool(torch.isfinite(out_k).all())
+        and errs["est"]["max_abs"] <= TOLERANCES["pose_atol"]
+        and errs["anchor"]["max_abs"] <= TOLERANCES["pose_atol"]
+        and errs["err"]["max_rel"] <= TOLERANCES["scale_rtol"]
+        and errs["wlam"]["max_rel"] <= TOLERANCES["scale_rtol"]
+        and errs["count"]["max_abs"] <= 0.0
+        and bool((its_k == its_p).all())
+    )
+    ms = time_ms(lambda: lm_level(*args, **kwargs), 10, dev)
+    plain_ms = time_ms(lambda: lm_level_plain(*args, **kwargs), 2, dev)
+    npx = fl.gray_prev.shape[-2] * fl.gray_prev.shape[-1]
+    nbytes = 4 * sum(t.numel() for t in args) + 4 * out_k.numel()
+    ops = float(
+        (out_k[:, 36].double() * (npx * OPS_WARP + out_k[:, 35].double() * OPS_VALID)).sum()
+    )
+    return {
+        "phase": "kernel", "kernel": "level_solver", "level": level, "grid_stride": s,
+        "shape": list(fl.gray_prev.shape), "illumination": illum, "rel": rel,
+        "ok": ok, "errors": errs, "iterations_kernel": its_k.tolist(),
+        "iterations_plain": its_p.tolist(), "ms": ms, "plain_ms": plain_ms,
+        "bytes": nbytes, "ops": ops, **bound(nbytes, ops),
+    }
+
+
+def check_fused_kernel(prev, curr, gt, cam, dev, illum):
+    cfg = RobustDVOConfig.from_json(CONFIGS / "tpu_fast.json")
+    level = 0
+    s = cfg.stride_for_level(level)
+    k = cam.at(level).to(dev)
+    est = start_estimates(gt, level)
+    fl = robust.frozen_level(
+        prev.gray[level], prev.depth_m[level], curr.gray[level], k, est, cfg, level
+    )
+    image_h, image_w = curr.gray[level].shape[-2:]
+    du, dv, valid = residual_displacements(
+        fl.u0, fl.v0, fl.cu, fl.cv, cfg.shift_stack_radius, s, image_h, image_w
+    )
+    valid = (valid & fl.valid_geom0).to(torch.float32)
+    b = est.shape[0]
+    lam0 = torch.full((b, 1), 1.0 / cfg.weighter.initial_sigma**2, device=dev)
+    args = (fl.planes, du.contiguous(), dv.contiguous(), fl.gray_prev, valid,
+            fl.jac_planes, lam0)
+    kwargs = dict(
+        radius=cfg.shift_stack_radius, grid_stride=s, dof=cfg.weighter.dof,
+        unroll=cfg.weighter.unroll_iterations or 3, use_tweights=cfg.use_weighter,
+        normalize_scale=cfg.weighter.normalize_scale, illum_bias=illum == "bias",
+    )
+    out_k = fused_iteration(*args, **kwargs)
+    out_p = fused_iteration_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    errs = field_errors(out_k, out_p, FUSED_FIELDS)
+    ok = bool(torch.isfinite(out_k).all()) and errs["count"]["max_abs"] <= 0.0 and all(
+        e["max_rel"] <= TOLERANCES["sum_rtol"]
+        for name, e in errs.items()
+        if name != "count" and (illum == "bias" or not name.startswith("bias"))
+    )
+    ms = time_ms(lambda: fused_iteration(*args, **kwargs), 20, dev)
+    plain_ms = time_ms(lambda: fused_iteration_plain(*args, **kwargs), 5, dev)
+    npx = du.shape[-2] * du.shape[-1]
+    nbytes = 4 * sum(t.numel() for t in args) + 4 * out_k.numel()
+    ops = float(b * npx + out_k[:, 43].double().sum() * OPS_VALID)
+    return {
+        "phase": "kernel", "kernel": "fused_iter", "level": level, "grid_stride": s,
+        "shape": list(du.shape), "illumination": illum, "ok": ok, "errors": errs,
+        "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+        **bound(nbytes, ops),
+    }
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_PER_S * 1e3
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+# ---------------------------------------------------------------------------
+# The main path.
+# ---------------------------------------------------------------------------
+
+
+def kernel_path_pairs(frames, k, cfg, pairs) -> list:
+    """The pairs that the hard-motion trigger passes at every level when
+    tracked alone: their solves launch the level kernel once per level."""
+    keep = []
+    for i, j in pairs:
+        before = lm_level.launches
+        batched_track_pair(stack_frame_data([frames[i]]), stack_frame_data([frames[j]]), k, cfg)
+        if lm_level.launches - before == cfg.levels:
+            keep.append((i, j))
+    return keep
+
+
+def run_batched(frames, poses, k, cfg, pairs, reps=3):
+    rows = (pairs * (-(-MAIN_BATCH // len(pairs))))[:MAIN_BATCH]
+    prev = stack_frame_data([frames[i] for i, _ in rows])
+    curr = stack_frame_data([frames[j] for _, j in rows])
+    gt = np.stack([gt_transform(poses, i, j) for i, j in rows])
+    before = lm_level.launches
+    result = batched_track_pair(prev, curr, k, cfg)  # warm-up
+    result.transform.cpu()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        result = batched_track_pair(prev, curr, k, cfg)
+        transform = result.transform.cpu().numpy()
+        times.append(time.perf_counter() - t0)
+    terr, rerr = pose_errors(transform, gt)
+    return {
+        "batch": MAIN_BATCH,
+        "frames_per_s": MAIN_BATCH / float(np.median(times)),
+        "batch_ms": [t * 1e3 for t in times],
+        "all_success": bool(result.success.all()),
+        "finite": bool(np.isfinite(transform).all()),
+        "translation_err_mm_median": float(np.median(terr) * 1e3),
+        "translation_err_mm_max": float(np.max(terr) * 1e3),
+        "rotation_err_deg_median": float(np.degrees(np.median(rerr))),
+        "rotation_err_deg_max": float(np.degrees(np.max(rerr))),
+        "iterations_per_level": result.diagnostics.iterations.cpu().tolist(),
+        "level_kernel_launches_per_call": (lm_level.launches - before) / (reps + 1),
+    }
+
+
+def run_session(grays, depths, cam, cfg, poses, dev):
+    session = OdometrySession(cam, cfg, device=dev)
+    frame_ms, est, success = [], [], []
+    for g, d in zip(grays, depths):
+        t0 = time.perf_counter()
+        pose = session.step(g, d).matrix.cpu().numpy()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        est.append(pose)
+        success.append(bool(session.last_output.success))
+    gt = np.einsum("ij,njk->nik", np.linalg.inv(poses[0]), poses)
+    terr, rerr = pose_errors(np.stack(est), gt)
+    return {
+        "frames": len(frame_ms),
+        "median_frame_ms": float(np.median(frame_ms[2:])),
+        "frame_ms": frame_ms,
+        "all_success": all(success),
+        "finite": bool(np.isfinite(np.stack(est)).all()),
+        "translation_err_mm_max": float(np.max(terr) * 1e3),
+        "translation_err_mm_final": float(terr[-1] * 1e3),
+        "rotation_err_deg_max": float(np.degrees(np.max(rerr))),
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
+              "needs a CUDA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    smi = nvidia_smi_line()
+    emit(phase_environment(smi))
+    emit(phase_build())
+    kernels = run(dev, smi)
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def run(dev: torch.device, smi: str) -> list:
+    """Phases 3 and 4 on ``dev``; -> the per-kernel summary rows."""
+    grays, depths, k_np, poses = make_sequence()
+    cam = CameraModel.create(k_np, 1.0)  # rendered depth is already metric
+    fast = RobustDVOConfig.from_json(CONFIGS / "tpu_fast.json")
+    parity = RobustDVOConfig.from_json(CONFIGS / "tpu_parity.json")
+    frames = [
+        robust.preprocess_frame(g, d, cam, levels=LEVELS, max_distance=fast.max_distance,
+                                device=dev)
+        for g, d in zip(grays, depths)
+    ]
+
+    # Phase 3: kernels against their plain versions.
+    prev, curr, gt = kernel_batch(frames, poses, dev)
+    checks = []
+    for level in (0, LEVELS - 1):
+        for illum in (None, "bias"):
+            for rel in (0.01, None):
+                checks.append(check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel))
+                emit(checks[-1])
+    for illum in (None, "bias"):
+        checks.append(check_fused_kernel(prev, curr, gt, cam, dev, illum))
+        emit(checks[-1])
+    failed = [c for c in checks if not c["ok"]]
+    if failed:
+        raise AssertionError(f"{len(failed)} kernel checks disagree with the plain versions")
+
+    pairs = [(i, i + 1) for i in range(N_FRAMES - 1)]
+    k_dev = cam.intrinsics.to(dev)
+    # One pair that trips the hard-motion trigger sends the whole batch to
+    # the gather path at that level; a batch of the pairs that pass it at
+    # every level shows the level-kernel path alone.
+    easy = kernel_path_pairs(frames, k_dev, fast, pairs)
+
+    # Phase 4: the main path, with the launch counts zeroed just before it.
+    lm_level.launches = 0
+    fused_iteration.launches = 0
+    main = {"phase": "main_path", "image": [HEIGHT, WIDTH], "pairs": len(pairs)}
+    main["batched_tpu_fast"] = run_batched(frames, poses, k_dev, fast, pairs)
+    main["batched_tpu_parity"] = run_batched(frames, poses, k_dev, parity, pairs)
+    main["kernel_path_pairs"] = easy
+    main["batched_tpu_fast_kernel_path"] = run_batched(frames, poses, k_dev, fast, easy)
+    main["session_tpu_fast"] = run_session(grays, depths, cam, fast, poses, dev)
+    launches = {"level_solver": lm_level.launches, "fused_iter": fused_iteration.launches}
+    main["launches"] = launches
+    emit(main)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    # Bounds on the noise-free synthetic scene, several times what the
+    # port's CPU plain path reaches on it (median 0.03 mm and max 0.1 mm per
+    # pair, 0.5 mm drift over the 16-frame session).
+    for key in ("batched_tpu_fast", "batched_tpu_parity", "batched_tpu_fast_kernel_path"):
+        r = main[key]
+        if not (r["finite"] and r["all_success"]):
+            raise AssertionError(f"{key}: non-finite or failed tracks")
+        if (r["translation_err_mm_median"] > 0.5 or r["translation_err_mm_max"] > 2.0
+                or r["rotation_err_deg_max"] > 0.1):
+            raise AssertionError(f"{key}: tracking error above the expected bound")
+    sess = main["session_tpu_fast"]
+    if not (sess["finite"] and sess["all_success"]) or sess["translation_err_mm_max"] > 2.0:
+        raise AssertionError("session: drift above the expected bound")
+
+    # Cross-check: two pairs on the card against the port's CPU plain path.
+    two = [(0, 1), (7, 8)]
+    cpu_frames = {i: robust.FrameData(tuple(g.cpu() for g in frames[i].gray),
+                                      tuple(d.cpu() for d in frames[i].depth_m))
+                  for pair in two for i in pair}
+    cross = {"phase": "cpu_cross_check", "pairs": two}
+    for name, cfg in (("tpu_fast", fast), ("tpu_parity", parity)):
+        g_res = batched_track_pair(
+            stack_frame_data([frames[i] for i, _ in two]),
+            stack_frame_data([frames[j] for _, j in two]), k_dev, cfg,
+        )
+        c_res = batched_track_pair(
+            stack_frame_data([cpu_frames[i] for i, _ in two]),
+            stack_frame_data([cpu_frames[j] for _, j in two]), cam.intrinsics, cfg,
+        )
+        diff = float((g_res.transform.cpu() - c_res.transform).abs().max())
+        same_its = g_res.diagnostics.iterations.cpu().tolist() == c_res.diagnostics.iterations.tolist()
+        cross[name] = {"max_abs_transform_diff": diff, "same_iterations": same_its}
+        if diff > TOLERANCES["pose_atol"]:
+            raise AssertionError(f"{name}: GPU and CPU transforms differ by {diff}")
+    emit(cross)
+
+    # Per-kernel summary (the fast tier's level-0 case; times from phase 3).
+    def summary(name, source, replaces, check, fields):
+        errs = [c["errors"][f] for c in checks if c["kernel"] == name for f in fields]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(e["max_abs"] for e in errs),
+            "max_rel_err": max(e["max_rel"] for e in errs),
+            "compared": list(fields),
+            "ms": check["ms"], "plain_ms": check["plain_ms"],
+            "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
+            "library_ms": None, "shape": check["shape"],
+            "card": smi,
+        }
+
+    level0 = next(c for c in checks if c["kernel"] == "level_solver" and c["level"] == 0
+                  and c["illumination"] is None and c["rel"] == 0.01)
+    fused0 = next(c for c in checks if c["kernel"] == "fused_iter" and c["illumination"] is None)
+    kernels = [
+        summary("level_solver", "dense_visual_odometry_torch/ops/cuda/csrc/level_solver.cu",
+                "dense_visual_odometry_tpu/ops/pallas/level_solver.py:268", level0,
+                ("est", "anchor")),
+        summary("fused_iter", "dense_visual_odometry_torch/ops/cuda/csrc/fused_iter.cu",
+                "dense_visual_odometry_tpu/ops/pallas/fused_iter.py:56", fused0,
+                ("H", "b", "err_sum", "lam")),
+    ]
+    return kernels
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""Dense visual odometry in PyTorch with hand-written CUDA kernels for Hopper.
+
+The port of ``dense_visual_odometry_tpu`` (the JAX package, kept beside it as
+the reference).  This slice carries frame-to-frame robust photometric
+odometry at the shipped tiers (``configs/tpu_fast.json``,
+``configs/tpu_parity.json``): ``models.robust.track_pair``,
+``parallel.batched.batched_track_pair`` and ``models.session.OdometrySession``.
+The two kernels of that path live in ``ops/cuda``; each has a plain PyTorch
+version that the CPU runs.
+
+Geometry stays in full float32: TF32 is switched off for matrix products
+and convolutions, as the JAX package forces highest matmul precision.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from dense_visual_odometry_torch.camera import CameraModel  # noqa: E402,F401
+from dense_visual_odometry_torch.config import RobustDVOConfig  # noqa: E402,F401
+from dense_visual_odometry_torch.utils.lie import Pose  # noqa: E402,F401

@@ -1,0 +1,605 @@
+"""Robust dense visual odometry: coarse-to-fine photometric LM tracking.
+
+Counterpart of ``dense_visual_odometry_tpu/models/robust.py`` for the
+branches the shipped tiers (``configs/tpu_fast.json``,
+``configs/tpu_parity.json``) take.  Per level, the solver:
+
+- builds the inverse-compositional Jacobian planes on the strided grid
+  from the template's Sobel gradients;
+- extracts the frozen window of the current image once, at the level's
+  starting estimate, around an integer centre per element;
+- evaluates the hard-motion trigger (shift-ball coverage, rotation angle
+  and, at the coarsest level, RMS displacement) at that estimate.  The
+  predicate is batch-global: if any element is hard, the whole batch runs
+  the LM loop on the gather path with exact current-image gradients
+  (:func:`_lm_loop`), else the level kernel solves the level in one
+  launch (``ops/cuda/level_solver.py``);
+- at level 0 re-evaluates the photometric Hessian at the solution (the
+  fused kernel, ``ops/cuda/fused_iter.py``, on the fast path).
+
+After the cascade, elements whose finest-level IRLS scale exceeds
+``retrack_max_scale`` are solved again with the hard-motion path forced at
+every level.  Data-dependent control flow (the trigger, loop exits, the
+retrack) reads device values on the host, as ``lax.cond`` /
+``lax.while_loop`` did inside the JAX program.
+
+Configurations outside the shipped tiers raise ``NotImplementedError``
+naming the ROADMAP.md port-queue item that will bring them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from dense_visual_odometry_torch.camera import CameraModel
+from dense_visual_odometry_torch.config import RobustDVOConfig
+from dense_visual_odometry_torch.models.weighting import (
+    t_distribution_weights_with_scale,
+)
+from dense_visual_odometry_torch.ops import gradients as grad_ops
+from dense_visual_odometry_torch.ops import interp as interp_ops
+from dense_visual_odometry_torch.ops import pyramid as pyr_ops
+from dense_visual_odometry_torch.ops.cuda.fused_iter import fused_shift_iteration
+from dense_visual_odometry_torch.ops.cuda.level_solver import solve_level_fused
+from dense_visual_odometry_torch.ops.residuals import (
+    approximate_jacobian_planes,
+    normal_equations,
+    warp_geometry,
+    warp_residuals_packed,
+)
+from dense_visual_odometry_torch.ops.shiftwarp import (
+    compute_recenter,
+    extract_parity_planes,
+    shift_coverage,
+)
+from dense_visual_odometry_torch.utils.lie import se3
+
+# Raw ksize-3 Sobel has gain 8 per unit pixel step.
+_SOBEL_GAIN = 8.0
+_FMAX = float(torch.finfo(torch.float32).max)
+
+
+class FrameData(NamedTuple):
+    """Per-frame gray and metric-depth pyramids; ``gray[l]`` is level l."""
+
+    gray: Tuple[torch.Tensor, ...]
+    depth_m: Tuple[torch.Tensor, ...]
+
+
+class LevelDiagnostics(NamedTuple):
+    iterations: torch.Tensor  # int32 iterations run (batch maximum)
+    error: torch.Tensor  # (B,) final mean weighted squared residual
+    count: torch.Tensor  # (B,) valid pixels of the accepted evaluation
+    scale: torch.Tensor  # (B,) IRLS residual scale sigma
+
+
+class TrackResult(NamedTuple):
+    """``transform`` maps camera_{t-1} points into camera_t."""
+
+    transform: torch.Tensor  # (B, 4, 4)
+    success: torch.Tensor  # (B,) bool
+    diagnostics: LevelDiagnostics  # stacked coarse-to-fine, length = levels
+    hessian: torch.Tensor  # (B, 6, 6) finest-level photometric J^T W J
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the GPU; asking for CUDA without one raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested (the default) but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain versions on the CPU"
+        )
+    return device
+
+
+def as_device_tensor(x, device) -> torch.Tensor:
+    """A numpy array or tensor on ``device`` (unsigned 16/32-bit depth is
+    widened to int64 first, which every torch build handles)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    x = np.asarray(x)
+    if x.dtype in (np.uint16, np.uint32):
+        x = x.astype(np.int64)
+    return torch.tensor(x, device=device)
+
+
+def preprocess_frame(
+    color_or_gray,
+    depth_raw,
+    camera: CameraModel,
+    *,
+    levels: int,
+    max_distance: float = 5.0,
+    quantize: bool = False,
+    device=None,
+) -> FrameData:
+    """Color (..., H, W, 3) or gray (..., H, W) + raw depth DN -> pyramids
+    on ``device`` (None = the GPU)."""
+    device = resolve_device(device)
+    color_or_gray = as_device_tensor(color_or_gray, device)
+    depth_raw = as_device_tensor(depth_raw, device)
+    is_rgb = (
+        color_or_gray.ndim == depth_raw.ndim + 1 and color_or_gray.shape[-1] == 3
+    )
+    if is_rgb:
+        gray = pyr_ops.rgb_to_gray(color_or_gray, quantize=quantize)
+    else:
+        gray = color_or_gray.to(torch.float32)
+    depth_m = pyr_ops.preprocess_depth(depth_raw, camera.depth_scale, max_distance)
+    return FrameData(
+        gray=pyr_ops.build_pyramid(gray, levels),
+        depth_m=pyr_ops.build_pyramid(depth_m, levels),
+    )
+
+
+def frame_data_from_numpy(frame, device) -> FrameData:
+    """A ``FrameData`` of arrays (e.g. the JAX package's, as numpy) ->
+    this package's tensors on ``device``."""
+    def conv(x):
+        return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+
+    return FrameData(
+        gray=tuple(conv(g) for g in frame.gray),
+        depth_m=tuple(conv(d) for d in frame.depth_m),
+    )
+
+
+def _check_ported(cfg: RobustDVOConfig) -> None:
+    """Raise for configurations whose branches this port does not have."""
+
+    def missing(what: str, item: int) -> NotImplementedError:
+        return NotImplementedError(
+            f"{what} is not ported yet (ROADMAP.md, port queue item {item})"
+        )
+
+    if cfg.sigma is not None:
+        raise missing("the motion prior (sigma)", 2)
+    if cfg.use_depth_residuals:
+        raise missing("the depth-residual term", 2)
+    if cfg.illumination == "affine":
+        raise missing("affine illumination", 2)
+    if (cfg.recenter_blocks or 1) > 1 or (cfg.recenter_col_blocks or 1) > 1:
+        raise missing("row-block / tile recentering", 2)
+    if cfg.lm_lambda0 is None:
+        raise missing("the Gauss-Newton loop (lm_lambda0 = None)", 3)
+    if cfg.use_esm_gradients:
+        raise missing("ESM gradients", 3)
+    if cfg.init_scale_ladder is not None:
+        raise missing("the init-scale ladder", 3)
+    fused_levels = (
+        cfg.shift_stack_radius is not None
+        and set(range(cfg.levels)) <= set(cfg.shift_stack_levels)
+        and cfg.use_fused_iteration
+        and cfg.approximate_image2_gradient
+        and cfg.freeze_shift_window
+        and cfg.use_level_kernel
+    )
+    if not fused_levels:
+        raise missing(
+            "evaluation off the frozen-window fused path ('shift', 'packed' "
+            "and 'plain' modes)", 3,
+        )
+    if any(cfg.stride_for_level(lv) not in (1, 2) for lv in range(cfg.levels)):
+        raise missing("grid strides other than 1 and 2", 2)
+
+
+def _bias_schur(sys, residuals, jacobian, weights):
+    """Eliminate a global intensity bias from the system (rank-1 Schur)."""
+    b = jacobian.shape[0]
+    jac = jacobian.reshape(b, -1, 6)
+    res = residuals.reshape(b, -1)
+    wts = weights.reshape(b, -1)
+    g = torch.einsum("bni,bn->bi", jac, wts)
+    s = torch.sum(wts, dim=-1)
+    rho = torch.sum(wts * res, dim=-1)
+    s_safe = torch.clamp(s, min=1e-6)
+    hess = sys.hessian - g[:, :, None] * g[:, None, :] / s_safe[:, None, None]
+    rhs = sys.rhs + g * (rho / s_safe)[:, None]
+    mu = rho / s_safe
+    error = sys.error - s * mu * mu / torch.clamp(sys.count, min=1.0)
+    return sys._replace(hessian=hess, rhs=rhs, error=error)
+
+
+def _lm_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
+    """Levenberg-Marquardt over a batch with per-element stopping.
+
+    One evaluation per iteration at the trial point; a rejected trial rolls
+    back and re-solves the carried system with more damping.  The loop runs
+    while any element is active; the iteration count is shared.
+    """
+    b = estimate0.shape[0]
+    dev = estimate0.device
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    est_acc, anchor_acc = estimate0, anchor0
+    est_try, anchor_try = estimate0, anchor0
+    hess_acc = torch.zeros((b, 6, 6), dtype=torch.float32, device=dev)
+    rhs_acc = torch.zeros((b, 6), dtype=torch.float32, device=dev)
+    err_acc = torch.full((b,), _FMAX, dtype=torch.float32, device=dev)
+    count_acc = torch.zeros((b,), dtype=torch.float32, device=dev)
+    lm_lambda = torch.full((b,), cfg.lm_lambda0, dtype=torch.float32, device=dev)
+    wlam = torch.full(
+        (b,), 1.0 / (cfg.weighter.initial_sigma**2), dtype=torch.float32, device=dev
+    )
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iterations and bool(torch.any(~done)):
+        hess, rhs, err, count, _photo, wlam = evaluate(est_try, anchor_try, wlam)
+        ok_eval = torch.isfinite(err) & (count >= 6.0)
+        active = ~done
+        take = (err < err_acc) & ok_eval & active
+        sel2 = take[:, None, None]
+        est_acc = torch.where(sel2, est_try, est_acc)
+        anchor_acc = torch.where(sel2, anchor_try, anchor_acc)
+        hess_acc = torch.where(sel2, hess, hess_acc)
+        rhs_acc = torch.where(take[:, None], rhs, rhs_acc)
+        err_acc = torch.where(take, err, err_acc)
+        count_acc = torch.where(take, count, count_acc)
+        lam = torch.where(
+            active,
+            torch.where(take, lm_lambda * cfg.lm_down, lm_lambda * cfg.lm_up),
+            lm_lambda,
+        )
+        lm_lambda = torch.clamp(lam, 1e-10, cfg.lm_lambda_max)
+
+        floor = 1e-8 * (1.0 + torch.diagonal(hess_acc, dim1=-2, dim2=-1).sum(-1))
+        damped = (
+            hess_acc
+            + lm_lambda[:, None, None] * (hess_acc * eye6)
+            + floor[:, None, None] * eye6
+        )
+        delta = torch.linalg.solve(damped, rhs_acc[..., None])[..., 0]
+        ok = torch.all(torch.isfinite(delta), dim=-1) & (count_acc >= 6.0)
+        delta = torch.where(ok[:, None], delta, torch.zeros_like(delta))
+
+        pred = torch.sum(delta * rhs_acc, dim=-1) / torch.clamp(count_acc, min=1.0)
+        converged = pred < cfg.tolerance
+        if rel_eff is not None:
+            converged = converged | (pred < rel_eff * torch.abs(err_acc))
+        done = (
+            done | (converged & ok_eval) | ~ok | (lm_lambda >= cfg.lm_lambda_max)
+        )
+        inc = se3.exp(delta)
+        inc_inv = se3.inverse(inc)
+        apply_final = (converged & ok_eval & ok & active)[:, None, None]
+        est_acc = torch.where(apply_final, inc @ est_acc, est_acc)
+        anchor_acc = torch.where(apply_final, inc_inv @ anchor_acc, anchor_acc)
+        move = (~done & active)[:, None, None]
+        est_try = torch.where(move, inc @ est_acc, est_acc)
+        anchor_try = torch.where(move, inc_inv @ anchor_acc, anchor_acc)
+        it += 1
+    diag = LevelDiagnostics(
+        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        error=err_acc,
+        count=count_acc,
+        scale=torch.rsqrt(torch.clamp(wlam, min=1e-20)),
+    )
+    return est_acc, anchor_acc, wlam, diag
+
+
+class FrozenLevel(NamedTuple):
+    """A level's estimate-independent inputs and its frozen window."""
+
+    gray_prev: torch.Tensor  # (B, H', W') template on the strided grid
+    depth_prev_m: torch.Tensor  # (B, H', W')
+    jac_planes: torch.Tensor  # (B, 6, H', W') inverse-compositional Jacobian
+    u0: torch.Tensor  # (B, H', W') warp at the level's starting estimate
+    v0: torch.Tensor
+    valid_geom0: torch.Tensor  # (B, H', W') depth-valid and in front
+    planes: torch.Tensor  # (B, s^2, ph, pw) frozen window
+    cu: torch.Tensor  # (B,) int32 window centre
+    cv: torch.Tensor
+
+
+def frozen_level(
+    gray_prev: torch.Tensor,
+    depth_prev_m: torch.Tensor,
+    gray_curr: torch.Tensor,
+    intrinsics: torch.Tensor,
+    estimate0: torch.Tensor,
+    cfg: RobustDVOConfig,
+    level: int,
+) -> FrozenLevel:
+    """Sobel Jacobian planes on the strided grid, and the current image's
+    window extracted once around the recentring at ``estimate0``."""
+    stride = cfg.stride_for_level(level)
+    radius = cfg.shift_stack_radius
+    sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
+    gx1, gy1 = grad_ops.sobel(gray_prev)
+    g1x_s = (gx1 / sgain)[..., ::stride, ::stride]
+    g1y_s = (gy1 / sgain)[..., ::stride, ::stride]
+    gray_prev = gray_prev[..., ::stride, ::stride].contiguous()
+    depth_prev_m = depth_prev_m[..., ::stride, ::stride].contiguous()
+    jac_planes = approximate_jacobian_planes(
+        depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
+    )
+    hp, wp = gray_prev.shape[-2], gray_prev.shape[-1]
+    _, u0, v0, vg0 = warp_geometry(depth_prev_m, intrinsics, estimate0, stride)
+    cu0, cv0 = compute_recenter(u0, v0, radius, stride, vg0)
+    planes0 = extract_parity_planes(gray_curr, cu0, cv0, hp, wp, radius, stride)
+    return FrozenLevel(
+        gray_prev, depth_prev_m, jac_planes, u0, v0, vg0, planes0, cu0, cv0
+    )
+
+
+def _solve_level(
+    gray_prev: torch.Tensor,
+    depth_prev_m: torch.Tensor,
+    gray_curr: torch.Tensor,
+    intrinsics: torch.Tensor,
+    estimate0: torch.Tensor,
+    prior_anchor0: torch.Tensor,
+    cfg: RobustDVOConfig,
+    level: int = 0,
+    want_hessian: bool = False,
+    force_hard: Optional[torch.Tensor] = None,
+):
+    """One pyramid level for a batch: images (B, H, W), transforms
+    (B, 4, 4).  -> (estimate, diagnostics, photometric Hessian or zeros)."""
+    b = estimate0.shape[0]
+    dev = estimate0.device
+    stride = cfg.stride_for_level(level)
+    radius = cfg.shift_stack_radius
+    sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
+    illum_bias = cfg.illumination == "bias"
+    image_h, image_w = gray_curr.shape[-2], gray_curr.shape[-1]
+
+    fl = frozen_level(
+        gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level
+    )
+    gray_prev, depth_prev_m, jac_planes = fl.gray_prev, fl.depth_prev_m, fl.jac_planes
+    u0, v0, vg0 = fl.u0, fl.v0, fl.valid_geom0
+    planes0, cu0, cv0 = fl.planes, fl.cu, fl.cv
+    hp, wp = gray_prev.shape[-2], gray_prev.shape[-1]
+
+    def fallback_trigger():
+        """-> per-element hard-motion flags at the level's start."""
+        cov = shift_coverage(u0, v0, radius, stride, coord_mask=vg0)
+        hard = cov < cfg.shift_fallback_min_coverage
+        rot = estimate0[:, :3, :3]
+        cos_t = 0.5 * (torch.diagonal(rot, dim1=-2, dim2=-1).sum(-1) - 1.0)
+        theta = torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
+        hard = hard | (theta > cfg.fallback_max_rotation)
+        if level == cfg.levels - 1:
+            col = torch.arange(wp, dtype=torch.float32, device=dev) * stride
+            row = torch.arange(hp, dtype=torch.float32, device=dev) * stride
+            du = u0 - col[None, :]
+            dv = v0 - row[:, None]
+            mf = vg0.to(torch.float32)
+            denom = torch.clamp(torch.sum(mf, dim=(-2, -1)), min=1.0)
+            rms = torch.sqrt(torch.sum((du * du + dv * dv) * mf, dim=(-2, -1)) / denom)
+            hard = hard | (rms > cfg.fallback_max_displacement)
+        return hard
+
+    rel_eff = cfg.relative_tolerance
+    need_fb = False
+    if cfg.shift_stack_fallback:
+        hard0 = fallback_trigger()
+        if force_hard is not None:
+            hard0 = hard0 | force_hard
+        # One predicate for the whole batch: a mixed batch takes the
+        # always-correct gather path.
+        need_fb = bool(torch.any(hard0))
+        if rel_eff is not None:
+            rel_eff = rel_eff * torch.where(
+                hard0,
+                torch.tensor(cfg.fallback_tolerance_scale, device=dev),
+                torch.tensor(1.0, device=dev),
+            )
+
+    def evaluate_fallback(fb_prep):
+        packed, grads_packed = fb_prep
+
+        def evaluate(estimate, _anchor, weight_lambda):
+            res, jac, valid = warp_residuals_packed(
+                gray_prev, depth_prev_m, packed, intrinsics, estimate,
+                grads_packed=grads_packed, grid_stride=stride,
+            )
+            if cfg.illumination is not None:
+                nv = torch.clamp(valid.sum(dim=(-2, -1)).to(torch.float32), min=1.0)
+                mu_r = torch.where(valid, res, torch.zeros_like(res)).sum(
+                    dim=(-2, -1)
+                ) / nv
+                res = torch.where(valid, res - mu_r[:, None, None], torch.zeros_like(res))
+            if cfg.use_weighter:
+                weights, weight_lambda = t_distribution_weights_with_scale(
+                    res * res, valid, cfg.weighter, event_ndim=2,
+                    init_lambda=weight_lambda if cfg.weighter.warm_start else None,
+                )
+            else:
+                weights = valid.to(torch.float32)
+            sys = normal_equations(res, jac, weights, valid)
+            if illum_bias:
+                sys = _bias_schur(sys, res, jac, weights)
+            return sys.hessian, sys.rhs, sys.error, sys.count, sys.hessian, weight_lambda
+
+        return evaluate
+
+    def make_fb_prep():
+        """Gather-path inputs: the packed current image and its exact
+        gradients (the template Jacobian is wrong under large motion)."""
+        gx2, gy2 = grad_ops.sobel(gray_curr)
+        return (
+            interp_ops.pack_neighbors(gray_curr),
+            interp_ops.pack_pair_f16(gx2 / sgain, gy2 / sgain),
+        )
+
+    max_iter = cfg.max_iterations_for_level(level)
+    if need_fb:
+        evaluate = evaluate_fallback(make_fb_prep())
+        est, anchor, wlam, diag = _lm_loop(
+            evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
+        )
+    else:
+        wlam0 = torch.full(
+            (b,), 1.0 / (cfg.weighter.initial_sigma**2), dtype=torch.float32,
+            device=dev,
+        )
+        rel = (
+            None if rel_eff is None
+            else torch.broadcast_to(torch.as_tensor(rel_eff, dtype=torch.float32, device=dev), (b,))
+        )
+        est, anchor, wlam, err, count, its = solve_level_fused(
+            planes0, cu0, cv0, depth_prev_m, gray_prev, jac_planes, intrinsics,
+            estimate0, prior_anchor0, wlam0, rel,
+            image_h=image_h, image_w=image_w, radius=radius,
+            grid_stride=stride, dof=cfg.weighter.dof,
+            unroll=cfg.weighter.unroll_iterations or 3,
+            use_tweights=cfg.use_weighter,
+            normalize_scale=cfg.weighter.normalize_scale,
+            tolerance=cfg.tolerance, lm_lambda0=cfg.lm_lambda0,
+            lm_up=cfg.lm_up, lm_down=cfg.lm_down,
+            lm_lambda_max=cfg.lm_lambda_max, max_iterations=max_iter,
+            illum_bias=illum_bias,
+        )
+        diag = LevelDiagnostics(
+            iterations=its, error=err, count=count,
+            scale=torch.rsqrt(torch.clamp(wlam, min=1e-20)),
+        )
+
+    if not want_hessian:
+        return est, diag, torch.zeros((b, 6, 6), dtype=torch.float32, device=dev)
+    if need_fb:
+        hess = evaluate(est, anchor, wlam)[4]
+    else:
+        _, u, v, valid_geom = warp_geometry(depth_prev_m, intrinsics, est, stride)
+        hess = fused_shift_iteration(
+            gray_prev, gray_curr, u, v, valid_geom, jac_planes, wlam,
+            frozen=(planes0, cu0, cv0), radius=radius, grid_stride=stride,
+            dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
+            use_tweights=cfg.use_weighter,
+            normalize_scale=cfg.weighter.normalize_scale,
+            illum_bias=illum_bias,
+        )[0]
+    return est, diag, hess
+
+
+def _box2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 box downsample (odd trailing row/column dropped)."""
+    h2, w2 = x.shape[-2] // 2, x.shape[-1] // 2
+    a = x[..., 0 : 2 * h2 : 2, 0 : 2 * w2 : 2]
+    b = x[..., 0 : 2 * h2 : 2, 1 : 2 * w2 : 2]
+    c = x[..., 1 : 2 * h2 : 2, 0 : 2 * w2 : 2]
+    d = x[..., 1 : 2 * h2 : 2, 1 : 2 * w2 : 2]
+    return 0.25 * (a + b + c + d)
+
+
+def _initial_photometric_error(
+    gray_prev, depth_prev_m, gray_curr_packed, intrinsics, transform, grid_stride=1
+):
+    """Masked mean squared photometric error of a candidate transform;
+    +inf-like (float32 max) when fewer than a quarter of the pixels stay."""
+    _, u, v, valid_geom = warp_geometry(depth_prev_m, intrinsics, transform, grid_stride)
+    val, ok = interp_ops.bilinear_sample_packed(gray_curr_packed, u, v)
+    valid = valid_geom & ok
+    res = torch.where(valid, val - gray_prev, torch.zeros_like(val))
+    count = valid.to(torch.float32).sum(dim=(-2, -1))
+    total = valid_geom.to(torch.float32).sum(dim=(-2, -1))
+    err = (res * res).sum(dim=(-2, -1)) / torch.clamp(count, min=1.0)
+    enough = count >= torch.clamp(0.25 * total, min=6.0)
+    return torch.where(enough, err, torch.full_like(err, _FMAX))
+
+
+def track_pair(
+    prev: FrameData,
+    curr: FrameData,
+    camera: CameraModel,
+    cfg: RobustDVOConfig,
+    init_guess: Optional[torch.Tensor] = None,
+    last_transform: Optional[torch.Tensor] = None,
+) -> TrackResult:
+    """Align each ``curr`` against its ``prev``: pyramids (B, H, W) per
+    level on one device; init_guess / last_transform (4, 4) or (B, 4, 4).
+    Runs on the device of the pyramids."""
+    _check_ported(cfg)
+    dev = prev.gray[0].device
+    b = prev.gray[0].shape[0]
+    eye = torch.eye(4, dtype=torch.float32, device=dev).expand(b, 4, 4)
+
+    def batch4(x):
+        return torch.broadcast_to(
+            torch.as_tensor(x, dtype=torch.float32, device=dev), (b, 4, 4)
+        )
+
+    estimate = eye if init_guess is None else batch4(init_guess)
+    anchor = eye if last_transform is None else batch4(last_transform)
+
+    def k_at(level):
+        return camera.at(level).to(dev)
+
+    if cfg.robust_init_selection and init_guess is not None:
+        # Score {guess, identity} at half the coarsest level's resolution
+        # through 2x2 box-filtered intensities; ties keep the guess.
+        lvl = cfg.levels - 1
+        gp_sel = _box2(prev.gray[lvl])
+        hs, ws = gp_sel.shape[-2], gp_sel.shape[-1]
+        dp_sel = prev.depth_m[lvl][..., ::2, ::2][..., :hs, :ws]
+        packed_sel = interp_ops.pack_neighbors(_box2(curr.gray[lvl]))
+        half = torch.tensor(
+            [[0.5, 0.0, -0.25], [0.0, 0.5, -0.25], [0.0, 0.0, 1.0]],
+            dtype=torch.float32, device=dev,
+        )
+        k_sel = half @ k_at(lvl)
+        err_guess = _initial_photometric_error(gp_sel, dp_sel, packed_sel, k_sel, estimate)
+        err_eye = _initial_photometric_error(gp_sel, dp_sel, packed_sel, k_sel, eye)
+        estimate = torch.where((err_eye < err_guess)[:, None, None], eye, estimate)
+
+    est_init = estimate
+
+    def run_cascade(force_hard):
+        est = est_init
+        diags = []
+        hessian = None
+        for level in range(cfg.levels - 1, -1, -1):
+            est, diag, hessian = _solve_level(
+                prev.gray[level], prev.depth_m[level], curr.gray[level],
+                k_at(level), est, anchor, cfg, level=level,
+                want_hessian=(level == 0), force_hard=force_hard,
+            )
+            diags.append(diag)
+        stacked = LevelDiagnostics(
+            iterations=torch.stack([d.iterations for d in diags]),
+            error=torch.stack([d.error for d in diags]),
+            count=torch.stack([d.count for d in diags]),
+            scale=torch.stack([d.scale for d in diags]),
+        )
+        return est, stacked, hessian
+
+    estimate, stacked, hessian = run_cascade(None)
+
+    if (
+        cfg.retrack_max_scale is not None
+        and cfg.use_weighter
+        and cfg.shift_stack_fallback
+    ):
+        # Scale-gated retrack from the initial estimate with the hard-motion
+        # path forced at every level; results are picked per element.
+        bad = stacked.scale[-1] > cfg.retrack_max_scale
+        if bool(torch.any(bad)):
+            est2, st2, hess2 = run_cascade(bad)
+            pick = bad[:, None, None]
+            estimate = torch.where(pick, est2, estimate)
+            hessian = torch.where(pick, hess2, hessian)
+            stacked = LevelDiagnostics(
+                iterations=torch.maximum(stacked.iterations, st2.iterations),
+                error=torch.where(bad[None], st2.error, stacked.error),
+                count=torch.where(bad[None], st2.count, stacked.count),
+                scale=torch.where(bad[None], st2.scale, stacked.scale),
+            )
+    success = (
+        torch.all(torch.isfinite(estimate).reshape(b, -1), dim=-1)
+        & torch.isfinite(stacked.error[-1])
+        & (stacked.count[-1] >= 6.0)
+    )
+    return TrackResult(
+        transform=estimate, success=success, diagnostics=stacked, hessian=hessian
+    )
+
+
+def step_pose(pose: torch.Tensor, result: TrackResult) -> torch.Tensor:
+    """``pose_t = pose_{t-1} @ transform^-1`` on success, unchanged otherwise."""
+    new_pose = pose @ se3.inverse(result.transform)
+    return torch.where(result.success[..., None, None], new_pose, pose)

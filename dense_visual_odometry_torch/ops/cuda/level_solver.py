@@ -1,0 +1,538 @@
+"""Level solver: a whole pyramid level's LM solve in one kernel launch.
+
+Counterpart of ``dense_visual_odometry_tpu/ops/pallas/level_solver.py``
+(``_level_kernel`` :268, ``lm_level_pallas`` :794, ``solve_level_fused``
+:928) for a single frozen-window centre per element.  :func:`lm_level` takes
+the Pallas call's argument layout: on CUDA tensors it launches
+``csrc/level_solver.cu`` (one block per batch element runs the whole LM
+loop); on CPU tensors it runs :func:`lm_level_plain`, the same function in
+plain PyTorch.  Any other device raises.
+
+Per element the loop evaluates the trial pose (warp of NaN-poisoned
+template points, ball / in-bounds / in-front masks, tent taps of the frozen
+window, optional bias centring, t-scale fixed point, weighted normal
+equations with the rank-1 bias Schur), then takes ``_lm_loop``'s step:
+accept/reject, damping up/down and clip, damped 6x6 Cholesky solve, the
+predictive and relative stopping rules, ``exp`` update of the estimate and
+inverse update of the anchor.  Elements exit independently; the reported
+iteration count is the batch maximum.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from dense_visual_odometry_torch.ops.cuda import build
+from dense_visual_odometry_torch.ops.residuals import inverse_intrinsics
+from dense_visual_odometry_torch.ops.shiftwarp import tent_sample
+
+IN_COLS = 40
+OUT_COLS = 48
+FMAX = float(torch.finfo(torch.float32).max)
+_SMALL_ANGLE_SQ = 1e-4
+_DIAG = (0, 6, 11, 15, 18, 20)  # diagonal of the packed upper triangle
+_PAIRS = [(i, j) for i in range(6) for j in range(i, 6)]
+_UPPER = {p: k for k, p in enumerate(_PAIRS)}
+
+
+# ---------------------------------------------------------------------------
+# Scalar algebra on per-element columns (tuples of (B,) tensors), in the
+# Pallas kernel's operation order.
+# ---------------------------------------------------------------------------
+
+
+def _where(cond, new, old):
+    return tuple(torch.where(cond, n, o) for n, o in zip(new, old))
+
+
+def se3_exp_rows(d):
+    """se3 exp of 6 columns (upsilon, phi) -> 12 columns (R | t) row-major."""
+    ux, uy, uz, wx, wy, wz = d
+    th_sq = wx * wx + wy * wy + wz * wz
+    small = th_sq < _SMALL_ANGLE_SQ
+    one = torch.ones_like(th_sq)
+    th_safe = torch.sqrt(torch.where(small, one, th_sq))
+    sin_t = torch.sin(th_safe)
+    cos_t = torch.cos(th_safe)
+    a = torch.where(
+        small, 1.0 - th_sq / 6.0 + th_sq * th_sq / 120.0, sin_t / th_safe
+    )
+    b = torch.where(
+        small,
+        0.5 - th_sq / 24.0 + th_sq * th_sq / 720.0,
+        (1.0 - cos_t) / torch.where(small, one, th_sq),
+    )
+    c = torch.where(
+        small,
+        1.0 / 6.0 - th_sq / 120.0 + th_sq * th_sq / 5040.0,
+        (th_safe - sin_t) / torch.where(small, one, th_sq * th_safe),
+    )
+    kxx, kyy, kzz = -(wy * wy + wz * wz), -(wx * wx + wz * wz), -(wx * wx + wy * wy)
+    kxy, kxz, kyz = wx * wy, wx * wz, wy * wz
+    r00, r11, r22 = 1.0 + b * kxx, 1.0 + b * kyy, 1.0 + b * kzz
+    r01, r10 = -a * wz + b * kxy, a * wz + b * kxy
+    r02, r20 = a * wy + b * kxz, -a * wy + b * kxz
+    r12, r21 = -a * wx + b * kyz, a * wx + b * kyz
+    v00, v11, v22 = 1.0 + c * kxx, 1.0 + c * kyy, 1.0 + c * kzz
+    v01, v10 = -b * wz + c * kxy, b * wz + c * kxy
+    v02, v20 = b * wy + c * kxz, -b * wy + c * kxz
+    v12, v21 = -b * wx + c * kyz, b * wx + c * kyz
+    tx = v00 * ux + v01 * uy + v02 * uz
+    ty = v10 * ux + v11 * uy + v12 * uz
+    tz = v20 * ux + v21 * uy + v22 * uz
+    return (r00, r01, r02, tx, r10, r11, r12, ty, r20, r21, r22, tz)
+
+
+def compose_rows(a, b):
+    """(R_a | t_a) @ (R_b | t_b) on 12 columns."""
+    out = []
+    for r in range(3):
+        a0, a1, a2, at = a[4 * r : 4 * r + 4]
+        for c in range(3):
+            out.append(a0 * b[c] + a1 * b[4 + c] + a2 * b[8 + c])
+        out.append(a0 * b[3] + a1 * b[7] + a2 * b[11] + at)
+    return tuple(out)
+
+
+def inverse_rows(m):
+    """[R^T | -R^T t] on 12 columns."""
+    r00, r01, r02, tx, r10, r11, r12, ty, r20, r21, r22, tz = m
+    return (
+        r00, r10, r20, -(r00 * tx + r10 * ty + r20 * tz),
+        r01, r11, r21, -(r01 * tx + r11 * ty + r21 * tz),
+        r02, r12, r22, -(r02 * tx + r12 * ty + r22 * tz),
+    )
+
+
+def chol_solve6(h21, rhs):
+    """Damped-system solve by an unrolled 6x6 Cholesky (upper packing)."""
+
+    def hij(i, j):
+        return h21[_UPPER[(i, j)]] if i <= j else h21[_UPPER[(j, i)]]
+
+    L = [[None] * 6 for _ in range(6)]
+    for j in range(6):
+        s = hij(j, j)
+        for t in range(j):
+            s = s - L[j][t] * L[j][t]
+        djj = torch.sqrt(torch.clamp(s, min=1e-30))
+        L[j][j] = djj
+        inv = 1.0 / djj
+        for i in range(j + 1, 6):
+            s = hij(i, j)
+            for t in range(j):
+                s = s - L[i][t] * L[j][t]
+            L[i][j] = s * inv
+    y = [None] * 6
+    for i in range(6):
+        s = rhs[i]
+        for t in range(i):
+            s = s - L[i][t] * y[t]
+        y[i] = s / L[i][i]
+    x = [None] * 6
+    for i in reversed(range(6)):
+        s = y[i]
+        for t in range(i + 1, 6):
+            s = s - L[t][i] * x[t]
+        x[i] = s / L[i][i]
+    return tuple(x)
+
+
+# ---------------------------------------------------------------------------
+# The plain version.
+# ---------------------------------------------------------------------------
+
+
+def _reduce(res, valid, jac, lam, dof, unroll, use_tweights, normalize_scale,
+            illum_bias):
+    """Bias centring, t-scale and the weighted sums of one evaluation.
+
+    res (B, hp, wp) already zero where invalid.  -> (h21, rhs, err, count,
+    lam) with the bias Schur applied, as in ``_level_kernel``'s evaluate.
+    """
+    validf = valid.to(torch.float32)
+    count = validf.sum(dim=(-2, -1))
+    count_safe = torch.clamp(count, min=1.0)
+    if illum_bias:
+        mu0 = res.sum(dim=(-2, -1)) / count_safe
+        res = torch.where(valid, res - mu0[:, None, None], torch.zeros_like(res))
+    rsq = res * res
+    if use_tweights:
+        for _ in range(unroll):
+            w_est = (dof + 1.0) / (dof + rsq * lam[:, None, None])
+            sigma_sq = (validf * rsq * w_est).sum(dim=(-2, -1))
+            if normalize_scale:
+                sigma_sq = sigma_sq / count_safe
+            lam = 1.0 / torch.clamp(sigma_sq, min=1e-20)
+        weights = validf * (dof + 1.0) / (dof + rsq * lam[:, None, None])
+    else:
+        weights = validf
+    jw = [jac[:, i] * weights for i in range(6)]
+    h21 = tuple((jw[i] * jac[:, j]).sum(dim=(-2, -1)) for i, j in _PAIRS)
+    rhs = tuple(-(jw[i] * res).sum(dim=(-2, -1)) for i in range(6))
+    err = (weights * rsq).sum(dim=(-2, -1)) / count_safe
+    if illum_bias:
+        s_safe = torch.clamp(weights.sum(dim=(-2, -1)), min=1e-6)
+        rho = (weights * res).sum(dim=(-2, -1))
+        g6 = tuple(jw[i].sum(dim=(-2, -1)) for i in range(6))
+        h21 = tuple(h - g6[i] * g6[j] / s_safe for (i, j), h in zip(_PAIRS, h21))
+        rhs = tuple(r + g6[i] * rho / s_safe for i, r in enumerate(rhs))
+        err = err - rho * rho / s_safe / count_safe
+    return h21, rhs, err, count, lam
+
+
+def lm_level_plain(
+    planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
+    image_h, image_w, dof, unroll, use_tweights, normalize_scale, tolerance,
+    lm_lambda0, lm_up, lm_down, lm_lambda_max, max_iterations,
+    illum_bias=False,
+) -> torch.Tensor:
+    """Plain-PyTorch version of the level kernel: same inputs, same
+    (B, 48) rows.  The loop runs while any element is active; finished
+    elements keep their state, which is the kernel's per-element exit."""
+    b, _, hp, wp = points.shape
+    dev = points.device
+    s = grid_stride
+    px, py, pz = points[:, 0], points[:, 1], points[:, 2]
+    fx, fy, cx, cy = (scal[:, k][:, None, None] for k in (33, 34, 35, 36))
+    rel = scal[:, 39]
+    col = torch.arange(wp, dtype=torch.float32, device=dev)[None, None, :]
+    row = torch.arange(hp, dtype=torch.float32, device=dev)[None, :, None]
+    coli = col * float(s) + scal[:, 37][:, None, None]
+    rowi = row * float(s) + scal[:, 38][:, None, None]
+    rad = float(radius)
+
+    def evaluate(est, wlam):
+        r00, r01, r02, tx, r10, r11, r12, ty, r20, r21, r22, tz = (
+            e[:, None, None] for e in est
+        )
+        xp = r00 * px + r01 * py + r02 * pz + tx
+        yp = r10 * px + r11 * py + r12 * pz + ty
+        zp = r20 * px + r21 * py + r22 * pz + tz
+        in_front = zp > 1e-6
+        z_safe = torch.where(in_front, zp, torch.ones_like(zp))
+        u = (fx * xp + cx * zp) / z_safe
+        v = (fy * yp + cy * zp) / z_safe
+        du = u - coli
+        dv = v - rowi
+        in_ball = (du > -rad) & (du < rad) & (dv > -rad) & (dv < rad)
+        x0 = torch.floor(u)
+        y0 = torch.floor(v)
+        in_bounds = (
+            (x0 >= 0.0) & (y0 >= 0.0)
+            & (x0 + 1.0 <= float(image_w - 1)) & (y0 + 1.0 <= float(image_h - 1))
+        )
+        valid = in_ball & in_bounds & in_front
+        acc = tent_sample(planes, du, dv, radius, s)
+        res = torch.where(valid, acc - gray_prev, torch.zeros_like(acc))
+        return _reduce(res, valid, jac_planes, wlam, dof, unroll, use_tweights,
+                       normalize_scale, illum_bias)
+
+    zero = torch.zeros(b, dtype=torch.float32, device=dev)
+    est0 = tuple(scal[:, 4 * r + c] for r in range(3) for c in range(4))
+    anchor0 = tuple(scal[:, 16 + 4 * r + c] for r in range(3) for c in range(4))
+    its = torch.zeros(b, dtype=torch.int32, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    lm_lam = torch.full((b,), lm_lambda0, dtype=torch.float32, device=dev)
+    wlam = scal[:, 32].clone()
+    err_acc = torch.full((b,), FMAX, dtype=torch.float32, device=dev)
+    count_acc = zero.clone()
+    est_acc, anchor_acc, est_try, anchor_try = est0, anchor0, est0, anchor0
+    hess_acc = tuple(zero for _ in range(21))
+    rhs_acc = tuple(zero for _ in range(6))
+
+    for _ in range(max_iterations):
+        active = ~done
+        if not bool(active.any()):
+            break
+        h21, rhs, err, count, wlam2 = evaluate(est_try, wlam)
+        ok_eval = torch.isfinite(err) & (count >= 6.0)
+        take = (err < err_acc) & ok_eval
+        n_est_acc = _where(take, est_try, est_acc)
+        n_anchor_acc = _where(take, anchor_try, anchor_acc)
+        n_hess = _where(take, h21, hess_acc)
+        n_rhs = _where(take, rhs, rhs_acc)
+        n_err = torch.where(take, err, err_acc)
+        n_count = torch.where(take, count, count_acc)
+        n_lam = torch.where(take, lm_lam * lm_down, lm_lam * lm_up)
+        n_lam = torch.clamp(n_lam, 1e-10, lm_lambda_max)
+
+        trace = (
+            n_hess[0] + n_hess[6] + n_hess[11] + n_hess[15] + n_hess[18] + n_hess[20]
+        )
+        floor = 1e-8 * (1.0 + trace)
+        damped = tuple(
+            h + (n_lam * h + floor) if k in _DIAG else h + 0.0
+            for k, h in enumerate(n_hess)
+        )
+        delta = chol_solve6(damped, n_rhs)
+        okd = torch.ones_like(done)
+        for d in delta:
+            okd = okd & torch.isfinite(d)
+        ok = okd & (n_count >= 6.0)
+        delta = tuple(torch.where(ok, d, torch.zeros_like(d)) for d in delta)
+        pred = delta[0] * n_rhs[0]
+        for d, r in zip(delta[1:], n_rhs[1:]):
+            pred = pred + d * r
+        pred = pred / torch.clamp(n_count, min=1.0)
+        converged = (pred < tolerance) | (
+            (rel >= 0.0) & (pred < rel * torch.abs(n_err))
+        )
+        done2 = done | (converged & ok_eval) | ~ok | (n_lam >= lm_lambda_max)
+        inc = se3_exp_rows(delta)
+        inc_inv = inverse_rows(inc)
+        apply_final = converged & ok_eval & ok
+        n_est_acc = _where(apply_final, compose_rows(inc, n_est_acc), n_est_acc)
+        n_anchor_acc = _where(
+            apply_final, compose_rows(inc_inv, n_anchor_acc), n_anchor_acc
+        )
+        move = ~done2
+        n_est_try = _where(move, compose_rows(inc, n_est_acc), n_est_acc)
+        n_anchor_try = _where(move, compose_rows(inc_inv, n_anchor_acc), n_anchor_acc)
+
+        # Finished elements keep their state (the kernel's per-element exit).
+        est_acc = _where(active, n_est_acc, est_acc)
+        anchor_acc = _where(active, n_anchor_acc, anchor_acc)
+        est_try = _where(active, n_est_try, est_try)
+        anchor_try = _where(active, n_anchor_try, anchor_try)
+        hess_acc = _where(active, n_hess, hess_acc)
+        rhs_acc = _where(active, n_rhs, rhs_acc)
+        err_acc = torch.where(active, n_err, err_acc)
+        count_acc = torch.where(active, n_count, count_acc)
+        lm_lam = torch.where(active, n_lam, lm_lam)
+        wlam = torch.where(active, wlam2, wlam)
+        its = its + active.to(torch.int32)
+        done = torch.where(active, done2, done)
+
+    out = torch.zeros((b, OUT_COLS), dtype=torch.float32, device=dev)
+    out[:, 0:12] = torch.stack(est_acc, dim=1)
+    out[:, 16:28] = torch.stack(anchor_acc, dim=1)
+    out[:, 15] = 1.0
+    out[:, 31] = 1.0
+    out[:, 32] = wlam
+    out[:, 33] = lm_lam
+    out[:, 34] = torch.where(err_acc >= FMAX, torch.full_like(err_acc, FMAX), err_acc)
+    out[:, 35] = count_acc
+    out[:, 36] = its.to(torch.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The kernel.
+# ---------------------------------------------------------------------------
+
+
+def _check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius):
+    b, _, hp, wp = points.shape
+    s = grid_stride
+    if s not in (1, 2):
+        raise ValueError(f"grid_stride must be 1 or 2, got {s}")
+    expect = {
+        "planes": (planes, (b, s * s, (2 * radius) // s + hp, (2 * radius) // s + wp)),
+        "points": (points, (b, 3, hp, wp)),
+        "gray_prev": (gray_prev, (b, hp, wp)),
+        "jac_planes": (jac_planes, (b, 6, hp, wp)),
+        "scal": (scal, (b, IN_COLS)),
+    }
+    for name, (t, shape) in expect.items():
+        if t.device != points.device:
+            raise ValueError(f"{name} is on {t.device}, expected {points.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
+            image_h, image_w, dof, unroll, use_tweights, normalize_scale,
+            tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
+            max_iterations, illum_bias) -> torch.Tensor:
+    lib = build.load("level_solver")
+    fn = lib.dvo_level_solver
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    )
+    b, _, hp, wp = points.shape
+    ph, pw = planes.shape[-2], planes.shape[-1]
+    out = torch.empty((b, OUT_COLS), dtype=torch.float32, device=points.device)
+    scratch = torch.empty((b, hp * wp), dtype=torch.float32, device=points.device)
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    status = fn(
+        planes.data_ptr(), points.data_ptr(), gray_prev.data_ptr(),
+        jac_planes.data_ptr(), scal.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        b, grid_stride, ph, pw, hp, wp, IN_COLS, radius, image_h, image_w,
+        dof, unroll, int(use_tweights), int(normalize_scale), int(illum_bias),
+        tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max, max_iterations,
+        stream,
+    )
+    build.check(status, "level_solver")
+    lm_level.launches += 1
+    return out
+
+
+def lm_level(
+    planes: torch.Tensor,
+    points: torch.Tensor,
+    gray_prev: torch.Tensor,
+    jac_planes: torch.Tensor,
+    scal: torch.Tensor,
+    radius: int,
+    grid_stride: int,
+    image_h: int,
+    image_w: int,
+    dof: float,
+    unroll: int,
+    use_tweights: bool,
+    normalize_scale: bool,
+    tolerance: float,
+    lm_lambda0: float,
+    lm_up: float,
+    lm_down: float,
+    lm_lambda_max: float,
+    max_iterations: int,
+    illum_bias: bool = False,
+) -> torch.Tensor:
+    """Solve one level for every element: planes (B, s^2, ph, pw), points
+    (B, 3, H', W') with NaN at invalid depth, gray_prev (B, H', W'),
+    jac_planes (B, 6, H', W'), scal (B, 40) -> (B, 48) rows (layouts in
+    ``csrc/level_solver.cu``).  CUDA tensors run the kernel, CPU tensors
+    the plain version."""
+    args = (planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
+            image_h, image_w, dof, unroll, use_tweights, normalize_scale,
+            tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
+            max_iterations, illum_bias)
+    _check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius)
+    if points.device.type == "cuda":
+        return _launch(*args)
+    if points.device.type == "cpu":
+        return lm_level_plain(*args)
+    raise RuntimeError(f"lm_level: no kernel for device {points.device}")
+
+
+lm_level.launches = 0
+
+
+def level_inputs(
+    cu: torch.Tensor,
+    cv: torch.Tensor,
+    depth_prev_m: torch.Tensor,
+    intrinsics: torch.Tensor,
+    estimate0: torch.Tensor,
+    anchor0: torch.Tensor,
+    wlam0: torch.Tensor,
+    rel: Optional[torch.Tensor],
+    grid_stride: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's per-element inputs: -> (points (B, 3, H', W'), scal
+    (B, 40)).
+
+    depth_prev_m (B, H', W') on the strided grid; cu / cv (B,) int32 window
+    centres; intrinsics (3, 3) or (B, 3, 3); estimate0 / anchor0 (B, 4, 4);
+    wlam0 (B,); rel (B,) relative tolerance or None.
+    """
+    b, hp, wp = depth_prev_m.shape
+    dev = depth_prev_m.device
+    kmat = torch.broadcast_to(intrinsics, (b, 3, 3))
+    kinv = inverse_intrinsics(kmat)
+    ugrid = torch.arange(wp, dtype=torch.float32, device=dev) * grid_stride
+    vgrid = torch.arange(hp, dtype=torch.float32, device=dev) * grid_stride
+
+    def coef(i, j):
+        return kinv[:, i, j][:, None, None]
+
+    ray_x = coef(0, 0) * ugrid[None, None, :] + coef(0, 1) * vgrid[None, :, None] + coef(0, 2)
+    ray_y = coef(1, 0) * ugrid[None, None, :] + coef(1, 1) * vgrid[None, :, None] + coef(1, 2)
+    # Camera-frame template points, NaN where the depth is invalid so every
+    # validity comparison in the solver fails there.
+    okd = depth_prev_m > 0.0
+    nan = torch.full_like(depth_prev_m, float("nan"))
+    points = torch.stack(
+        [
+            torch.where(okd, ray_x * depth_prev_m, nan),
+            torch.where(okd, ray_y * depth_prev_m, nan),
+            torch.where(okd, depth_prev_m, nan),
+        ],
+        dim=1,
+    ).contiguous()
+
+    scal = torch.zeros((b, IN_COLS), dtype=torch.float32, device=dev)
+    scal[:, 0:16] = torch.broadcast_to(estimate0, (b, 4, 4)).reshape(b, 16)
+    scal[:, 16:32] = torch.broadcast_to(anchor0, (b, 4, 4)).reshape(b, 16)
+    scal[:, 32] = torch.broadcast_to(wlam0, (b,))
+    scal[:, 33] = kmat[:, 0, 0]
+    scal[:, 34] = kmat[:, 1, 1]
+    scal[:, 35] = kmat[:, 0, 2]
+    scal[:, 36] = kmat[:, 1, 2]
+    scal[:, 37] = cu.to(torch.float32)
+    scal[:, 38] = cv.to(torch.float32)
+    scal[:, 39] = -1.0 if rel is None else torch.broadcast_to(rel, (b,))
+    return points, scal
+
+
+def solve_level_fused(
+    planes: torch.Tensor,
+    cu: torch.Tensor,
+    cv: torch.Tensor,
+    depth_prev_m: torch.Tensor,
+    gray_prev: torch.Tensor,
+    jac_planes: torch.Tensor,
+    intrinsics: torch.Tensor,
+    estimate0: torch.Tensor,
+    anchor0: torch.Tensor,
+    wlam0: torch.Tensor,
+    rel: Optional[torch.Tensor],
+    image_h: int,
+    image_w: int,
+    radius: int,
+    grid_stride: int,
+    dof: float,
+    unroll: int,
+    use_tweights: bool,
+    normalize_scale: bool,
+    tolerance: float,
+    lm_lambda0: float,
+    lm_up: float,
+    lm_down: float,
+    lm_lambda_max: float,
+    max_iterations: int,
+    illum_bias: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Batched wrapper: one level solved in one launch.
+
+    depth_prev_m / gray_prev (B, H', W') on the strided grid; planes
+    (B, s^2, ph, pw) frozen windows around cu / cv (B,) int32; the rest as
+    :func:`level_inputs`.  -> (est, anchor, wlam, err, count, iterations),
+    iterations being the batch maximum (a 0-d int32 tensor).
+    """
+    b = gray_prev.shape[0]
+    points, scal = level_inputs(
+        cu, cv, depth_prev_m, intrinsics, estimate0, anchor0, wlam0, rel,
+        grid_stride,
+    )
+    out = lm_level(
+        planes.to(torch.float32).contiguous(), points,
+        gray_prev.to(torch.float32).contiguous(),
+        jac_planes.to(torch.float32).contiguous(), scal,
+        radius=radius, grid_stride=grid_stride, image_h=image_h,
+        image_w=image_w, dof=dof, unroll=unroll, use_tweights=use_tweights,
+        normalize_scale=normalize_scale, tolerance=tolerance,
+        lm_lambda0=lm_lambda0, lm_up=lm_up, lm_down=lm_down,
+        lm_lambda_max=lm_lambda_max, max_iterations=max_iterations,
+        illum_bias=illum_bias,
+    )
+    est = out[:, 0:16].reshape(b, 4, 4).clone()
+    anchor = out[:, 16:32].reshape(b, 4, 4).clone()
+    # The bottom row is structural: write it rather than trust the kernel.
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32, device=out.device)
+    est[:, 3, :] = bottom
+    anchor[:, 3, :] = bottom
+    its = torch.max(out[:, 36]).to(torch.int32)
+    return est, anchor, out[:, 32], out[:, 34], out[:, 35], its

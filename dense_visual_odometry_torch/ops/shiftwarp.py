@@ -1,0 +1,197 @@
+"""Frozen-window ("shift ball") geometry shared by the solver and the kernels.
+
+Counterparts of ``dense_visual_odometry_tpu/ops/shiftwarp.py:shift_coverage``
+and of the helpers in ``dense_visual_odometry_tpu/ops/pallas/stackwarp.py``
+(``compute_recenter``, ``residual_displacements``,
+``extract_parity_planes``).  A level samples the current image through a
+window extracted once, at the level's starting estimate, around one integer
+centre (cu, cv) per batch element: the centre absorbs the mean displacement
+of the strided grid, and a pixel stays valid while its displacement from
+that centre lies inside the open ball ``|du| < r, |dv| < r``.  Inside the
+ball, tent-tap accumulation over the window equals bilinear sampling.
+
+The window is stored as ``s^2`` parity planes so that the tap at window row
+``a + s*i`` and column ``b + s*j`` is
+``planes[(a % s) * s + b % s][a // s + i, b // s + j]``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+def _grid_displacements(u, v, grid_stride):
+    hp, wp = u.shape[-2], u.shape[-1]
+    col = torch.arange(wp, dtype=torch.float32, device=u.device) * grid_stride
+    row = torch.arange(hp, dtype=torch.float32, device=u.device) * grid_stride
+    return u - col[None, :], v - row[:, None]
+
+
+def shift_coverage(
+    u: torch.Tensor,
+    v: torch.Tensor,
+    radius: int,
+    grid_stride: int,
+    coord_mask: torch.Tensor,
+) -> torch.Tensor:
+    """(B,) fraction of the pixels of ``coord_mask`` (those with real
+    coordinates) that the recentred ball would keep."""
+    cu, cv = compute_recenter(u, v, radius, grid_stride, coord_mask)
+    du, dv = _grid_displacements(u, v, grid_stride)
+    du = du - cu[..., None, None].to(torch.float32)
+    dv = dv - cv[..., None, None].to(torch.float32)
+    in_ball = (du > -radius) & (du < radius) & (dv > -radius) & (dv < radius)
+    mf = coord_mask.to(torch.float32)
+    denom = torch.clamp(torch.sum(mf, dim=(-2, -1)), min=1.0)
+    return torch.sum(in_ball.to(torch.float32) * mf, dim=(-2, -1)) / denom
+
+
+def compute_recenter(
+    u: torch.Tensor,
+    v: torch.Tensor,
+    radius: int,
+    grid_stride: int,
+    coord_mask: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B,) int32 centres: the mean displacement over ``coord_mask``,
+    rounded half to even and clipped to +-4*radius."""
+    du, dv = _grid_displacements(u, v, grid_stride)
+    center_bound = 4 * radius
+    mf = coord_mask.to(torch.float32)
+    denom = torch.clamp(torch.sum(mf, dim=(-2, -1)), min=1.0)
+    mean_du = torch.sum(du * mf, dim=(-2, -1)) / denom
+    mean_dv = torch.sum(dv * mf, dim=(-2, -1)) / denom
+    cu = torch.clamp(torch.round(mean_du), -center_bound, center_bound)
+    cv = torch.clamp(torch.round(mean_dv), -center_bound, center_bound)
+    return cu.to(torch.int32), cv.to(torch.int32)
+
+
+def residual_displacements(
+    u, v, cu, cv, radius: int, grid_stride: int, image_h: int, image_w: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Centre-relative displacements and validity for a given recentring.
+
+    -> (du, dv (B, H', W') f32, valid): inside the ball around (cu, cv)
+    and bilinear-in-bounds in the source image.
+    """
+    du, dv = _grid_displacements(u, v, grid_stride)
+    du = du - cu[..., None, None].to(torch.float32)
+    dv = dv - cv[..., None, None].to(torch.float32)
+    in_ball = (du > -radius) & (du < radius) & (dv > -radius) & (dv < radius)
+    x0 = torch.floor(u)
+    y0 = torch.floor(v)
+    in_bounds = (
+        (x0 >= 0) & (y0 >= 0) & (x0 + 1 <= image_w - 1) & (y0 + 1 <= image_h - 1)
+    )
+    return du, dv, in_ball & in_bounds
+
+
+def extract_parity_planes(
+    image: torch.Tensor,
+    cu: torch.Tensor,
+    cv: torch.Tensor,
+    grid_hp: int,
+    grid_wp: int,
+    radius: int,
+    grid_stride: int = 1,
+) -> torch.Tensor:
+    """Recentred window + parity split: image (B, H, W), cu/cv (B,) ->
+    planes (B, s^2, 2r//s + H', 2r//s + W') f32.
+
+    ``window[p + k] == image[p + c + k]`` for |k| <= r, zero outside the
+    image and outside the window's full-resolution support.
+    """
+    s = grid_stride
+    b = image.shape[0]
+    win_h = (grid_hp - 1) * s + 1 + 2 * radius
+    win_w = (grid_wp - 1) * s + 1 + 2 * radius
+    ph = (2 * radius) // s + grid_hp
+    pw = (2 * radius) // s + grid_wp
+    pad = 5 * radius + s
+    padded = F.pad(image.to(torch.float32)[:, None], (pad, pad, pad, pad))[:, 0]
+    dev = image.device
+    # Window row a = s*m + p of plane p*s + q reads image row cv + a - r.
+    a = (
+        s * torch.arange(ph, device=dev)[None, :]
+        + torch.arange(s, device=dev)[:, None]
+    )  # (s, ph)
+    c = (
+        s * torch.arange(pw, device=dev)[None, :]
+        + torch.arange(s, device=dev)[:, None]
+    )  # (s, pw)
+    rows = pad - radius + cv.to(torch.int64)[:, None, None] + a[None]  # (B, s, ph)
+    cols = pad - radius + cu.to(torch.int64)[:, None, None] + c[None]  # (B, s, pw)
+    hp_pad, wp_pad = padded.shape[-2], padded.shape[-1]
+    flat = padded.reshape(b, hp_pad * wp_pad)
+    # (B, s_row, s_col, ph, pw) flat indices.
+    idx = rows[:, :, None, :, None] * wp_pad + cols[:, None, :, None, :]
+    vals = torch.gather(flat, 1, idx.reshape(b, -1)).reshape(b, s, s, ph, pw)
+    inside = (a < win_h)[:, None, :, None] & (c < win_w)[None, :, None, :]
+    vals = torch.where(inside[None], vals, torch.zeros_like(vals))
+    return vals.reshape(b, s * s, ph, pw)
+
+
+def tent_sample(
+    planes: torch.Tensor,
+    du: torch.Tensor,
+    dv: torch.Tensor,
+    radius: int,
+    grid_stride: int,
+) -> torch.Tensor:
+    """Tent-tap accumulation over the frozen window: planes (B, s^2, ph, pw),
+    centre-relative displacements du, dv (B, H', W') -> (B, H', W').
+
+    The plain version of the kernels' sampling (``csrc/dvo_common.cuh``):
+    the (2r+1)^2-tap sweep of the TPU kernels has at most four non-zero
+    taps, at floor(d) and floor(d) + 1 on each axis; those are gathered
+    from the parity planes and added in the sweep's order (rows ascending;
+    within a row the even column-parity plane first at stride 2).  Taps
+    outside [-r, r] carry no weight; a NaN displacement gives NaN.
+    """
+    s = grid_stride
+    b, _, ph, pw = planes.shape
+    hp, wp = du.shape[-2], du.shape[-1]
+    dev = planes.device
+    flat = planes.reshape(b, -1)
+    ii = torch.arange(hp, device=dev)[None, :, None]
+    jj = torch.arange(wp, device=dev)[None, None, :]
+    fy = torch.floor(dv)
+    fx = torch.floor(du)
+    # Integer taps, clamped so that out-of-range (or non-finite) ones index
+    # safely; their terms are dropped below.
+    ky0 = torch.clamp(torch.nan_to_num(fy), -radius - 1, radius + 1).to(torch.int64)
+    kx0 = torch.clamp(torch.nan_to_num(fx), -radius - 1, radius + 1).to(torch.int64)
+
+    def terms(ky, kyf):
+        have_y = (kyf >= -radius) & (kyf <= radius)
+        wy = torch.clamp(1.0 - torch.abs(dv - kyf), min=0.0)
+        a = torch.clamp(radius + ky, 0, 2 * radius)
+        out = []
+        for t in range(2):
+            kx = kx0 + t
+            kxf = fx + float(t)
+            have = have_y & (kxf >= -radius) & (kxf <= radius)
+            wx = torch.clamp(1.0 - torch.abs(du - kxf), min=0.0)
+            bb = torch.clamp(radius + kx, 0, 2 * radius)
+            plane = (a % s) * s + bb % s
+            idx = (plane * ph + (a // s + ii)) * pw + (bb // s + jj)
+            val = torch.gather(flat, 1, idx.reshape(b, -1)).reshape(b, hp, wp)
+            term = (wy * wx) * val
+            out.append((have, term))
+        return out
+
+    acc = torch.zeros_like(du)
+    swap = (s == 2) & ((radius + kx0) % 2 == 1)
+    for t in range(2):
+        (h0, t0), (h1, t1) = terms(ky0 + t, fy + float(t))
+        first_h = torch.where(swap, h1, h0)
+        first = torch.where(swap, t1, t0)
+        second_h = torch.where(swap, h0, h1)
+        second = torch.where(swap, t0, t1)
+        acc = torch.where(first_h, acc + first, acc)
+        acc = torch.where(second_h, acc + second, acc)
+    nan = torch.isnan(du) | torch.isnan(dv)
+    return torch.where(nan, torch.full_like(acc, float("nan")), acc)

@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Where the port's time goes on one GPU: a torch.profiler breakdown.
+
+Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
+
+    python3 profile_port.py
+
+Builds the kernels, then profiles three runs over the seeded 640x480 scene
+of ``chip_smoke.py`` (``configs/tpu_fast.json``): the 16-frame
+``OdometrySession`` (B=1), and ``batched_track_pair`` at B=64 over all 15
+consecutive pairs and over the pairs that the hard-motion trigger passes
+at every level (``chip_smoke.kernel_path_pairs``).  Each run is done once unprofiled as a
+warm-up.  Prints one JSON line per run: wall time, device kernel time and
+its share of the wall time, and the kernels that took the most device time.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from dense_visual_odometry_torch.models.session import OdometrySession
+from dense_visual_odometry_torch.ops.cuda import build
+from dense_visual_odometry_torch.parallel import batched_track_pair, stack_frame_data
+
+
+def breakdown(name: str, fn, top: int = 8) -> dict:
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Kernel-level events only: an operator's device time is that of the
+    # kernels it launched, which are events of their own.
+    rows = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = float(sum(r[1] for r in rows))
+    return {
+        "run": name,
+        "wall_ms": wall_ms,
+        "device_kernel_ms": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "top": [{"name": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]],
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_port: needs a CUDA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    build.build(("level_solver", "fused_iter"))
+    grays, depths, k_np, poses = cs.make_sequence()
+    cam = cs.CameraModel.create(k_np, 1.0)
+    fast = cs.RobustDVOConfig.from_json(cs.CONFIGS / "tpu_fast.json")
+    frames = [
+        cs.robust.preprocess_frame(g, d, cam, levels=cs.LEVELS, device=dev)
+        for g, d in zip(grays, depths)
+    ]
+    k_dev = cam.intrinsics.to(dev)
+    pairs = [(i, i + 1) for i in range(cs.N_FRAMES - 1)]
+    easy = cs.kernel_path_pairs(frames, k_dev, fast, pairs)
+
+    def session():
+        s = OdometrySession(cam, fast, device=dev)
+        for g, d in zip(grays, depths):
+            s.step(g, d).matrix.cpu()
+
+    def batched(sel):
+        rows = (sel * (-(-cs.MAIN_BATCH // len(sel))))[: cs.MAIN_BATCH]
+        prev = stack_frame_data([frames[i] for i, _ in rows])
+        curr = stack_frame_data([frames[j] for _, j in rows])
+        return lambda: batched_track_pair(prev, curr, k_dev, fast).transform.cpu()
+
+    print(json.dumps({"card": smi, "torch": torch.__version__}), flush=True)
+    for name, fn in (
+        ("session_b1_16_frames", session),
+        ("batched_b64_all_pairs", batched(pairs)),
+        ("batched_b64_kernel_path", batched(easy)),
+    ):
+        out = breakdown(name, fn)
+        out["frames"] = len(grays) if name.startswith("session") else cs.MAIN_BATCH
+        if name.endswith("kernel_path"):
+            out["pairs"] = easy
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,230 @@
+"""The two kernels' plain versions against the JAX package's Pallas kernels.
+
+``lm_level_plain`` is held against ``lm_level_pallas`` and
+``fused_iteration_plain`` against ``fused_iteration_pallas``, both Pallas
+kernels run in interpret mode as the JAX package's own tests run them on the
+CPU.  Both sides get the same numpy arrays: a seeded synthetic scene seen
+from a second pose, at B=2 on a 30x40 grid, for grid strides 1 and 2, with
+and without the illumination bias and the relative tolerance.
+
+Tolerances: transforms 1e-5 absolute; iteration counts identical; err,
+count and the IRLS lambda 1e-4 relative.  The solves start from a generic
+pose (the truth off by a seeded twist): under the identity warp a template
+pixel on the image border projects exactly onto the bounds test's edge,
+where XLA's fused multiply-adds and PyTorch's separate roundings may fall
+on opposite sides.
+
+The CUDA kernels themselves have no CPU version; ``test_cuda_kernels_match_plain``
+holds them against the plain versions on a GPU and skips without one.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dense_visual_odometry_torch.camera import CameraModel
+from dense_visual_odometry_torch.config import RobustDVOConfig
+from dense_visual_odometry_torch.io import synthetic
+from dense_visual_odometry_torch.models import robust
+from dense_visual_odometry_torch.ops.cuda import fused_iter as tfused
+from dense_visual_odometry_torch.ops.cuda import level_solver as tlevel
+from dense_visual_odometry_torch.ops.residuals import warp_geometry
+from dense_visual_odometry_torch.ops.shiftwarp import residual_displacements
+from dense_visual_odometry_torch.utils.lie import se3
+from dense_visual_odometry_tpu.ops.pallas import fused_iter as jfused
+from dense_visual_odometry_tpu.ops.pallas import level_solver as jlevel
+
+GRID_H, GRID_W = 30, 40
+CFG = RobustDVOConfig(
+    levels=1, use_weighter=True, max_iterations=12, grid_strides=(1,),
+    shift_stack_radius=3, shift_stack_levels=(0,), lm_lambda0=1e-4,
+    approximate_image2_gradient=True, use_fused_iteration=True,
+    freeze_shift_window=True, use_level_kernel=True,
+)
+
+
+def _frozen(stride: int, device="cpu"):
+    """Level inputs for B=2 pairs of a seeded scene, frozen at a start pose."""
+    h, w = GRID_H * stride, GRID_W * stride
+    gray, depth, k = synthetic.textured_scene(h, w, seed=3)
+    poses = synthetic.handheld_trajectory(3, seed=4, t_step=0.02, r_step=0.01)
+    grays, depths = synthetic.render_sequence(gray, depth, k, poses)
+    cam = CameraModel.create(k, 1.0)
+    frames = [
+        robust.preprocess_frame(g, d, cam, levels=1, device=device)
+        for g, d in zip(grays, depths)
+    ]
+    pairs = [(0, 1), (2, 1)]
+    prev_g = torch.stack([frames[i].gray[0] for i, _ in pairs])
+    prev_d = torch.stack([frames[i].depth_m[0] for i, _ in pairs])
+    curr_g = torch.stack([frames[j].gray[0] for _, j in pairs])
+    gt = torch.as_tensor(
+        np.stack([np.linalg.inv(poses[j]) @ poses[i] for i, j in pairs]),
+        dtype=torch.float32, device=device,
+    )
+    rng = np.random.default_rng(stride)
+    xi = torch.as_tensor(rng.normal(0, 4e-3, (2, 6)), dtype=torch.float32, device=device)
+    est0 = se3.exp(xi) @ gt
+    cfg = dataclasses.replace(CFG, grid_strides=(stride,))
+    k_t = cam.at(0).to(device)
+    fl = robust.frozen_level(prev_g, prev_d, curr_g, k_t, est0, cfg, 0)
+    return cfg, fl, k_t, est0, (h, w)
+
+
+def _kernel_kwargs(cfg, stride, image_hw, illum_bias):
+    return dict(
+        radius=cfg.shift_stack_radius, grid_stride=stride,
+        image_h=image_hw[0], image_w=image_hw[1], dof=cfg.weighter.dof, unroll=3,
+        use_tweights=True, normalize_scale=True, tolerance=cfg.tolerance,
+        lm_lambda0=cfg.lm_lambda0, lm_up=cfg.lm_up, lm_down=cfg.lm_down,
+        lm_lambda_max=cfg.lm_lambda_max, max_iterations=cfg.max_iterations,
+        illum_bias=illum_bias,
+    )
+
+
+@pytest.fixture(scope="module", params=[1, 2], ids=["s1", "s2"])
+def level_case(request):
+    return (request.param,) + _frozen(request.param)
+
+
+@pytest.mark.parametrize("rel", [None, 0.01], ids=["abs_tol", "rel_tol"])
+@pytest.mark.parametrize("illum", [None, "bias"], ids=["no_illum", "bias"])
+def test_level_solver_plain_matches_pallas(level_case, illum, rel):
+    stride, cfg, fl, k, est0, image_hw = level_case
+    b = est0.shape[0]
+    wlam0 = torch.full((b,), 0.04)
+    relt = None if rel is None else torch.full((b,), rel)
+    points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0, relt, stride)
+    kw = _kernel_kwargs(cfg, stride, image_hw, illum == "bias")
+    args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
+    before = tlevel.lm_level.launches
+    out_t = tlevel.lm_level(*args, **kw).numpy()
+    assert tlevel.lm_level.launches == before  # CPU tensors: the plain version
+    out_j = np.asarray(
+        jlevel.lm_level_pallas(*(jnp.asarray(a.numpy()) for a in args), interpret=True, **kw)
+    )
+    its_t, its_j = out_t[:, 36], out_j[:, 36]
+    np.testing.assert_array_equal(its_t, its_j)
+    assert its_t.min() >= 2  # the LM loop really iterated
+    np.testing.assert_allclose(out_t[:, 0:16], out_j[:, 0:16], atol=1e-5)
+    np.testing.assert_allclose(out_t[:, 16:32], out_j[:, 16:32], atol=1e-5)
+    np.testing.assert_allclose(out_t[:, 32:36], out_j[:, 32:36], rtol=1e-4)
+    np.testing.assert_array_equal(out_t[:, 37:], out_j[:, 37:])
+
+
+@pytest.mark.parametrize("illum", [None, "bias"], ids=["no_illum", "bias"])
+def test_fused_iteration_plain_matches_pallas(level_case, illum):
+    stride, cfg, fl, k, est0, image_hw = level_case
+    du, dv, valid = residual_displacements(
+        fl.u0, fl.v0, fl.cu, fl.cv, cfg.shift_stack_radius, stride, *image_hw
+    )
+    valid = (valid & fl.valid_geom0).to(torch.float32)
+    assert 0 < valid.sum() < valid.numel()
+    lam0 = torch.tensor([[0.04], [0.02]])
+    args = (fl.planes, du, dv, fl.gray_prev, valid, fl.jac_planes, lam0)
+    kw = dict(radius=cfg.shift_stack_radius, grid_stride=stride, dof=5.0, unroll=3,
+              use_tweights=True, normalize_scale=True, illum_bias=illum == "bias")
+    out_t = tfused.fused_iteration(*args, **kw).numpy()
+    out_j = np.asarray(
+        jfused.fused_iteration_pallas(*(jnp.asarray(a.numpy()) for a in args), interpret=True, **kw)
+    )
+    scale = np.abs(out_j).max(axis=0, keepdims=True) + 1e-30
+    np.testing.assert_array_less(np.abs(out_t - out_j) / scale, 1e-4)
+    np.testing.assert_array_equal(out_t[:, 43], out_j[:, 43])  # count
+
+
+@pytest.mark.parametrize("illum", [None, "bias"], ids=["no_illum", "bias"])
+def test_fused_shift_iteration_matches(level_case, illum):
+    """The solver-facing wrapper, frozen window and bias Schur included."""
+    stride, cfg, fl, k, est0, image_hw = level_case
+    _, u, v, vg = warp_geometry(fl.depth_prev_m, k, est0, stride)
+    lam0 = torch.tensor([0.04, 0.02])
+    kw = dict(radius=cfg.shift_stack_radius, grid_stride=stride, dof=5.0, unroll=3,
+              use_tweights=True, normalize_scale=True, illum_bias=illum == "bias")
+    curr_shape = torch.zeros((2,) + image_hw)
+    t = tfused.fused_shift_iteration(
+        fl.gray_prev, curr_shape, u, v, vg, fl.jac_planes, lam0,
+        (fl.planes, fl.cu, fl.cv), **kw,
+    )
+    j = jfused.fused_shift_iteration(
+        *(jnp.asarray(x.numpy()) for x in (fl.gray_prev, curr_shape, u, v, vg)),
+        jacobian_planes=jnp.asarray(fl.jac_planes.numpy()), lam0=jnp.asarray(lam0.numpy()),
+        frozen=tuple(jnp.asarray(x.numpy()) for x in (fl.planes, fl.cu, fl.cv)), **kw,
+    )
+    for a, b in zip(t, j):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4, atol=1e-4 * np.abs(b).max())
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    """Only CPU tensors take the plain versions; a device without a kernel raises."""
+    meta = torch.device("meta")
+    b, hp, wp, s, r = 1, 4, 5, 1, 3
+    ph, pw = 2 * r + hp, 2 * r + wp
+    z = lambda *shape: torch.zeros(shape, device=meta)  # noqa: E731
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tlevel.lm_level(
+            z(b, 1, ph, pw), z(b, 3, hp, wp), z(b, hp, wp), z(b, 6, hp, wp), z(b, 40),
+            **_kernel_kwargs(CFG, s, (10, 10), False),
+        )
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tfused.fused_iteration(
+            z(b, 1, ph, pw), z(b, hp, wp), z(b, hp, wp), z(b, hp, wp), z(b, hp, wp),
+            z(b, 6, hp, wp), z(b, 1), radius=r, grid_stride=s,
+        )
+
+
+def test_wrappers_check_inputs():
+    b, hp, wp, r = 1, 4, 5, 3
+    good = dict(radius=r, grid_stride=1)
+    planes = torch.zeros(b, 1, 2 * r + hp, 2 * r + wp)
+    img = torch.zeros(b, hp, wp)
+    jac = torch.zeros(b, 6, hp, wp)
+    lam = torch.zeros(b, 1)
+    with pytest.raises(ValueError, match="shape"):
+        tfused.fused_iteration(planes[:, :, 1:], img, img, img, img, jac, lam, **good)
+    with pytest.raises(TypeError, match="float32"):
+        tfused.fused_iteration(planes, img.double(), img, img, img, jac, lam, **good)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfused.fused_iteration(planes, img, img, img, img, jac.transpose(2, 3).contiguous().transpose(2, 3), lam, **good)
+    with pytest.raises(ValueError, match="grid_stride"):
+        tfused.fused_iteration(planes, img, img, img, img, jac, lam, radius=r, grid_stride=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("illum", [None, "bias"], ids=["no_illum", "bias"])
+@pytest.mark.parametrize("stride", [1, 2], ids=["s1", "s2"])
+def test_cuda_kernels_match_plain(stride, illum):
+    """Each CUDA kernel against its plain version on the card, same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU build")
+    cfg, fl, k, est0, image_hw = _frozen(stride, device="cuda")
+    b = est0.shape[0]
+    wlam0 = torch.full((b,), 0.04, device="cuda")
+    points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0,
+                                       torch.full((b,), 0.01, device="cuda"), stride)
+    kw = _kernel_kwargs(cfg, stride, image_hw, illum == "bias")
+    args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
+    before = tlevel.lm_level.launches
+    out_k = tlevel.lm_level(*args, **kw)
+    assert tlevel.lm_level.launches == before + 1
+    out_p = tlevel.lm_level_plain(*args, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out_k[:, 36].cpu(), out_p[:, 36].cpu())
+    np.testing.assert_allclose(out_k[:, :32].cpu(), out_p[:, :32].cpu(), atol=1e-5)
+    np.testing.assert_allclose(out_k[:, 32:36].cpu(), out_p[:, 32:36].cpu(), rtol=1e-4)
+
+    du, dv, valid = residual_displacements(
+        fl.u0, fl.v0, fl.cu, fl.cv, cfg.shift_stack_radius, stride, *image_hw
+    )
+    valid = (valid & fl.valid_geom0).to(torch.float32)
+    fargs = (fl.planes, du, dv, fl.gray_prev, valid, fl.jac_planes,
+             torch.full((b, 1), 0.04, device="cuda"))
+    fkw = dict(radius=cfg.shift_stack_radius, grid_stride=stride, illum_bias=illum == "bias")
+    fk = tfused.fused_iteration(*fargs, **fkw).cpu().numpy()
+    fp = tfused.fused_iteration_plain(*fargs, **fkw).cpu().numpy()
+    scale = np.abs(fp).max(axis=0, keepdims=True) + 1e-30
+    np.testing.assert_array_less(np.abs(fk - fp) / scale, 1e-4)
