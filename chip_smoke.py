@@ -12,13 +12,19 @@ Phases, each printing one JSON line:
    started together;
 3. kernels: each CUDA kernel against its plain PyTorch version on the same
    inputs on the card, at the 640x480 main path's level shapes (B=8), with
-   the tolerances stated in ``TOLERANCES``; kernel and plain times;
-4. main path: ``batched_track_pair`` at B=64 on ``configs/tpu_fast.json`` and
-   ``configs/tpu_parity.json``, and a 16-frame ``OdometrySession`` on
-   ``tpu_fast``, over a seeded synthetic 640x480 scene with exact ground
-   truth; the kernels' launch counts are zeroed just before this phase and
-   read just after it; two pairs are cross-checked against the port's CPU
-   plain path.
+   the tolerances stated in ``TOLERANCES`` (the level kernel without
+   illumination, with the bias and with affine gain + bias; the stack kernel
+   at levels 0 and 3); kernel and plain times, and for the stack kernel the
+   time of ``F.grid_sample`` on the same samples;
+4. main path: ``batched_track_pair`` at B=64 on ``configs/tpu_fast.json``,
+   ``configs/tpu_parity.json`` and the parity tier with affine illumination
+   (``parity_affine``) and with ESM gradients (``parity_esm``), each over all
+   15 pairs and over the pairs that stay on the level kernel (all but
+   ``tpu_parity``), and a 16-frame ``OdometrySession`` on ``tpu_fast`` and
+   on the two variants, over a seeded synthetic 640x480 scene with exact
+   ground truth; the kernels' launch counts are zeroed just before this phase and
+   read just after it; two pairs of each configuration are cross-checked
+   against the port's CPU plain path.
 
 Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers, and
 last ``{"ok": true, "device": {...}}``.  A failed check raises and exits
@@ -35,6 +41,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dense_visual_odometry_torch.camera import CameraModel
 from dense_visual_odometry_torch.config import RobustDVOConfig
@@ -51,7 +58,8 @@ from dense_visual_odometry_torch.ops.cuda.level_solver import (
     lm_level,
     lm_level_plain,
 )
-from dense_visual_odometry_torch.ops.shiftwarp import residual_displacements
+from dense_visual_odometry_torch.ops.cuda.stackwarp import stack_accumulate
+from dense_visual_odometry_torch.ops.shiftwarp import residual_displacements, tent_sample
 from dense_visual_odometry_torch.parallel import batched_track_pair, stack_frame_data
 from dense_visual_odometry_torch.utils.lie import se3
 
@@ -72,14 +80,26 @@ PEAK_FP32_PER_S = 67e12
 # displacement, ball and bounds tests) on every pixel; on a valid pixel the
 # <= 4 tent taps and the residual (29), the t-scale fixed point (7 per step,
 # 3 steps) and the weighted normal equations (21 + 6 products and sums, the
-# weight and error: 67), ~120 in all.
+# weight and error: 67), ~120 in all.  The stack kernel, per output pixel:
+# two floors, per row tap its offset, range test and weight (7, twice), per
+# tap its offset, range test, weight, product and sum (10, four times): 56.
 OPS_WARP = 40
 OPS_VALID = 120
+OPS_STACK = 56
 
 # Kernel against plain version: same inputs, same arithmetic; only the order
 # of the block-wide sums differs.  Poses in metres / rotation entries; sums
-# relative to the largest magnitude of their field.
-TOLERANCES = {"pose_atol": 1e-4, "sum_rtol": 1e-4, "scale_rtol": 1e-3}
+# relative to the largest magnitude of their field.  The stack kernel sums no
+# block: its samples on the valid pixels relative to the largest sample.
+TOLERANCES = {"pose_atol": 1e-4, "sum_rtol": 1e-4, "scale_rtol": 1e-3,
+              "sample_rtol": 1e-5}
+# The parity tier's variants on the main path: configs/tpu_parity.json read
+# verbatim, then these overrides.
+VARIANTS = {
+    "parity_affine": {"illumination": "affine"},
+    "parity_esm": {"use_esm_gradients": True, "esm_levels": [0, 1, 2],
+                   "esm_fallback_max_rotation": 0.25},
+}
 
 
 def emit(obj) -> None:
@@ -125,12 +145,13 @@ def phase_environment(smi: str) -> dict:
 
 
 def phase_build() -> dict:
-    names = ("level_solver", "fused_iter")
+    names = ("level_solver", "fused_iter", "stackwarp")
     t0 = time.perf_counter()
     paths = build.build(names)
     seconds = time.perf_counter() - t0
     registers = {
-        n: [ln.strip() for ln in build.build_logs.get(n, "").splitlines() if "registers" in ln]
+        n: [ln.strip() for ln in build.build_logs.get(n, "").splitlines()
+            if "registers" in ln or "spill" in ln]
         for n in names
     }
     return {
@@ -145,6 +166,12 @@ def phase_build() -> dict:
 # ---------------------------------------------------------------------------
 # Data: a seeded 640x480 scene, a 16-frame hand-held trajectory, exact truth.
 # ---------------------------------------------------------------------------
+
+
+def variant_config(name: str) -> RobustDVOConfig:
+    """``parity_affine`` / ``parity_esm``: the parity tier with overrides."""
+    data = json.loads((CONFIGS / "tpu_parity.json").read_text())
+    return RobustDVOConfig.from_dict({**data, **VARIANTS[name]})
 
 
 def make_sequence():
@@ -178,12 +205,16 @@ def pose_errors(est: np.ndarray, gt: np.ndarray):
 def time_ms(fn, reps: int, dev) -> float:
     """Median device time of ``fn`` over ``reps`` runs, each after writing a
     buffer larger than the 50 MB L2 so that the inputs come from HBM, as
-    they do on the main path."""
+    they do on the main path.  The card then spins for about a millisecond
+    before the start event, so that the host has queued the launch by the
+    time the event is reached: a launch's host-side cost (tens of
+    microseconds through the wrapper) is not counted as device time."""
     flush = torch.empty(64 * 1024 * 1024 // 4, dtype=torch.float32, device=dev)
     fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -261,7 +292,7 @@ def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel):
         tolerance=cfg.tolerance, lm_lambda0=cfg.lm_lambda0, lm_up=cfg.lm_up,
         lm_down=cfg.lm_down, lm_lambda_max=cfg.lm_lambda_max,
         max_iterations=cfg.max_iterations_for_level(level),
-        illum_bias=illum == "bias",
+        illum_bias=illum == "bias", illum_affine=illum == "affine",
     )
     args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
     out_k = lm_level(*args, **kwargs)
@@ -337,6 +368,60 @@ def check_fused_kernel(prev, curr, gt, cam, dev, illum):
         "shape": list(du.shape), "illumination": illum, "ok": ok, "errors": errs,
         "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
         **bound(nbytes, ops),
+    }
+
+
+def check_stack_kernel(prev, curr, gt, cam, dev, level):
+    """The stack kernel against ``tent_sample`` on the frozen window of a
+    level at its start estimates, and ``F.grid_sample`` on the same
+    samples (the library yardstick, bilinear, zeros outside the image)."""
+    cfg = RobustDVOConfig.from_json(CONFIGS / "tpu_parity.json")
+    s = cfg.stride_for_level(level)
+    r = cfg.shift_stack_radius
+    k = cam.at(level).to(dev)
+    est0 = start_estimates(gt, level)
+    image = curr.gray[level]
+    fl = robust.frozen_level(
+        prev.gray[level], prev.depth_m[level], image, k, est0, cfg, level
+    )
+    image_h, image_w = image.shape[-2:]
+    du, dv, in_ball = residual_displacements(fl.u0, fl.v0, fl.cu, fl.cv, r, s, image_h, image_w)
+    du, dv = du.contiguous(), dv.contiguous()
+    valid = in_ball & fl.valid_geom0
+    out_k = stack_accumulate(fl.planes, du, dv, r, s)
+    out_p = tent_sample(fl.planes, du, dv, r, s)
+    grid = torch.stack(
+        [2.0 * fl.u0 / (image_w - 1) - 1.0, 2.0 * fl.v0 / (image_h - 1) - 1.0], dim=-1
+    )
+
+    def library():
+        return F.grid_sample(image[:, None], grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=True)[:, 0]
+
+    out_l = library()
+    torch.cuda.synchronize()
+    kv, pv = out_k[valid].double(), out_p[valid].double()
+    diff = float((kv - pv).abs().max())
+    scale = float(pv.abs().max())
+    errors = {"samples": {"max_abs": diff, "max_rel": diff / max(scale, 1e-30)}}
+    ok = (
+        bool(torch.isfinite(out_k[valid]).all())
+        and int(valid.sum()) > 0
+        and errors["samples"]["max_rel"] <= TOLERANCES["sample_rtol"]
+    )
+    ms = time_ms(lambda: stack_accumulate(fl.planes, du, dv, r, s), 20, dev)
+    plain_ms = time_ms(lambda: tent_sample(fl.planes, du, dv, r, s), 5, dev)
+    library_ms = time_ms(library, 20, dev)
+    npx = du.numel()
+    nbytes = 4 * (fl.planes.numel() + 3 * npx)
+    ops = float(npx * OPS_STACK)
+    return {
+        "phase": "kernel", "kernel": "stackwarp", "level": level, "grid_stride": s,
+        "shape": list(du.shape), "valid_pixels": int(valid.sum()), "ok": ok,
+        "errors": errors,
+        "library_max_abs_diff": float((out_l[valid].double() - kv).abs().max()),
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bytes": nbytes, "ops": ops, **bound(nbytes, ops),
     }
 
 
@@ -437,50 +522,77 @@ def main() -> int:
     return 0
 
 
-def run(dev: torch.device, smi: str) -> list:
-    """Phases 3 and 4 on ``dev``; -> the per-kernel summary rows."""
-    grays, depths, k_np, poses = make_sequence()
-    cam = CameraModel.create(k_np, 1.0)  # rendered depth is already metric
-    fast = RobustDVOConfig.from_json(CONFIGS / "tpu_fast.json")
-    parity = RobustDVOConfig.from_json(CONFIGS / "tpu_parity.json")
-    frames = [
-        robust.preprocess_frame(g, d, cam, levels=LEVELS, max_distance=fast.max_distance,
-                                device=dev)
-        for g, d in zip(grays, depths)
-    ]
-
-    # Phase 3: kernels against their plain versions.
+def kernel_checks(frames, poses, cam, dev) -> list:
+    """Phase 3: every kernel against its plain version at the main path's
+    level shapes (B=8); raises if one disagrees."""
     prev, curr, gt = kernel_batch(frames, poses, dev)
     checks = []
     for level in (0, LEVELS - 1):
-        for illum in (None, "bias"):
+        for illum in (None, "bias", "affine"):
             for rel in (0.01, None):
                 checks.append(check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel))
                 emit(checks[-1])
     for illum in (None, "bias"):
         checks.append(check_fused_kernel(prev, curr, gt, cam, dev, illum))
         emit(checks[-1])
+    for level in (0, LEVELS - 1):
+        checks.append(check_stack_kernel(prev, curr, gt, cam, dev, level))
+        emit(checks[-1])
     failed = [c for c in checks if not c["ok"]]
     if failed:
         raise AssertionError(f"{len(failed)} kernel checks disagree with the plain versions")
+    return checks
+
+
+def run(dev: torch.device, smi: str) -> list:
+    """Phases 3 and 4 on ``dev``; -> the per-kernel summary rows."""
+    grays, depths, k_np, poses = make_sequence()
+    cam = CameraModel.create(k_np, 1.0)  # rendered depth is already metric
+    configs = {
+        "tpu_fast": RobustDVOConfig.from_json(CONFIGS / "tpu_fast.json"),
+        "tpu_parity": RobustDVOConfig.from_json(CONFIGS / "tpu_parity.json"),
+        **{name: variant_config(name) for name in VARIANTS},
+    }
+    fast = configs["tpu_fast"]
+    frames = [
+        robust.preprocess_frame(g, d, cam, levels=LEVELS, max_distance=fast.max_distance,
+                                device=dev)
+        for g, d in zip(grays, depths)
+    ]
+
+    checks = kernel_checks(frames, poses, cam, dev)
 
     pairs = [(i, i + 1) for i in range(N_FRAMES - 1)]
     k_dev = cam.intrinsics.to(dev)
     # One pair that trips the hard-motion trigger sends the whole batch to
     # the gather path at that level; a batch of the pairs that pass it at
-    # every level shows the level-kernel path alone.
-    easy = kernel_path_pairs(frames, k_dev, fast, pairs)
+    # every level shows the level-kernel path alone.  Each configuration
+    # picks them with its own trigger (ESM relaxes the rotation threshold).
+    kernel_path = {
+        name: kernel_path_pairs(frames, k_dev, configs[name], pairs)
+        for name in ("tpu_fast", *VARIANTS)
+    }
+    if not all(kernel_path.values()):
+        raise AssertionError(f"a configuration has no kernel-path pairs: {kernel_path}")
 
     # Phase 4: the main path, with the launch counts zeroed just before it.
     lm_level.launches = 0
     fused_iteration.launches = 0
-    main = {"phase": "main_path", "image": [HEIGHT, WIDTH], "pairs": len(pairs)}
-    main["batched_tpu_fast"] = run_batched(frames, poses, k_dev, fast, pairs)
-    main["batched_tpu_parity"] = run_batched(frames, poses, k_dev, parity, pairs)
-    main["kernel_path_pairs"] = easy
-    main["batched_tpu_fast_kernel_path"] = run_batched(frames, poses, k_dev, fast, easy)
-    main["session_tpu_fast"] = run_session(grays, depths, cam, fast, poses, dev)
-    launches = {"level_solver": lm_level.launches, "fused_iter": fused_iteration.launches}
+    stack_accumulate.launches = 0
+    main = {"phase": "main_path", "image": [HEIGHT, WIDTH], "pairs": len(pairs),
+            "kernel_path_pairs": kernel_path}
+    batched = []
+    for name, cfg in configs.items():
+        batched.append(f"batched_{name}")
+        main[batched[-1]] = run_batched(frames, poses, k_dev, cfg, pairs)
+        if name in kernel_path:
+            batched.append(f"batched_{name}_kernel_path")
+            main[batched[-1]] = run_batched(frames, poses, k_dev, cfg, kernel_path[name])
+    sessions = [f"session_{name}" for name in ("tpu_fast", *VARIANTS)]
+    for name, key in zip(("tpu_fast", *VARIANTS), sessions):
+        main[key] = run_session(grays, depths, cam, configs[name], poses, dev)
+    launches = {"level_solver": lm_level.launches, "fused_iter": fused_iteration.launches,
+                "stackwarp": stack_accumulate.launches}
     main["launches"] = launches
     emit(main)
     if min(launches.values()) < 1:
@@ -488,16 +600,17 @@ def run(dev: torch.device, smi: str) -> list:
     # Bounds on the noise-free synthetic scene, several times what the
     # port's CPU plain path reaches on it (median 0.03 mm and max 0.1 mm per
     # pair, 0.5 mm drift over the 16-frame session).
-    for key in ("batched_tpu_fast", "batched_tpu_parity", "batched_tpu_fast_kernel_path"):
+    for key in batched:
         r = main[key]
         if not (r["finite"] and r["all_success"]):
             raise AssertionError(f"{key}: non-finite or failed tracks")
         if (r["translation_err_mm_median"] > 0.5 or r["translation_err_mm_max"] > 2.0
                 or r["rotation_err_deg_max"] > 0.1):
             raise AssertionError(f"{key}: tracking error above the expected bound")
-    sess = main["session_tpu_fast"]
-    if not (sess["finite"] and sess["all_success"]) or sess["translation_err_mm_max"] > 2.0:
-        raise AssertionError("session: drift above the expected bound")
+    for key in sessions:
+        sess = main[key]
+        if not (sess["finite"] and sess["all_success"]) or sess["translation_err_mm_max"] > 2.0:
+            raise AssertionError(f"{key}: drift above the expected bound")
 
     # Cross-check: two pairs on the card against the port's CPU plain path.
     two = [(0, 1), (7, 8)]
@@ -505,7 +618,7 @@ def run(dev: torch.device, smi: str) -> list:
                                       tuple(d.cpu() for d in frames[i].depth_m))
                   for pair in two for i in pair}
     cross = {"phase": "cpu_cross_check", "pairs": two}
-    for name, cfg in (("tpu_fast", fast), ("tpu_parity", parity)):
+    for name, cfg in configs.items():
         g_res = batched_track_pair(
             stack_frame_data([frames[i] for i, _ in two]),
             stack_frame_data([frames[j] for _, j in two]), k_dev, cfg,
@@ -521,7 +634,7 @@ def run(dev: torch.device, smi: str) -> list:
             raise AssertionError(f"{name}: GPU and CPU transforms differ by {diff}")
     emit(cross)
 
-    # Per-kernel summary (the fast tier's level-0 case; times from phase 3).
+    # Per-kernel summary (level-0 cases; times from phase 3).
     def summary(name, source, replaces, check, fields):
         errs = [c["errors"][f] for c in checks if c["kernel"] == name for f in fields]
         return {
@@ -532,13 +645,14 @@ def run(dev: torch.device, smi: str) -> list:
             "compared": list(fields),
             "ms": check["ms"], "plain_ms": check["plain_ms"],
             "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
-            "library_ms": None, "shape": check["shape"],
+            "library_ms": check.get("library_ms"), "shape": check["shape"],
             "card": smi,
         }
 
     level0 = next(c for c in checks if c["kernel"] == "level_solver" and c["level"] == 0
                   and c["illumination"] is None and c["rel"] == 0.01)
     fused0 = next(c for c in checks if c["kernel"] == "fused_iter" and c["illumination"] is None)
+    stack0 = next(c for c in checks if c["kernel"] == "stackwarp" and c["level"] == 0)
     kernels = [
         summary("level_solver", "dense_visual_odometry_torch/ops/cuda/csrc/level_solver.cu",
                 "dense_visual_odometry_tpu/ops/pallas/level_solver.py:268", level0,
@@ -546,6 +660,9 @@ def run(dev: torch.device, smi: str) -> list:
         summary("fused_iter", "dense_visual_odometry_torch/ops/cuda/csrc/fused_iter.cu",
                 "dense_visual_odometry_tpu/ops/pallas/fused_iter.py:56", fused0,
                 ("H", "b", "err_sum", "lam")),
+        summary("stackwarp", "dense_visual_odometry_torch/ops/cuda/csrc/stackwarp.cu",
+                "dense_visual_odometry_tpu/ops/pallas/stackwarp.py:38", stack0,
+                ("samples",)),
     ]
     return kernels
 

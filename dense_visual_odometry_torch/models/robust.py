@@ -2,20 +2,26 @@
 
 Counterpart of ``dense_visual_odometry_tpu/models/robust.py`` for the
 branches the shipped tiers (``configs/tpu_fast.json``,
-``configs/tpu_parity.json``) take.  Per level, the solver:
+``configs/tpu_parity.json``) take, and for affine illumination and ESM
+gradients on them.  Per level, the solver:
 
 - builds the inverse-compositional Jacobian planes on the strided grid
   from the template's Sobel gradients;
 - extracts the frozen window of the current image once, at the level's
-  starting estimate, around an integer centre per element;
+  starting estimate, around an integer centre per element; with ESM
+  gradients, samples that window once through the stack kernel
+  (``ops/cuda/stackwarp.py``) and averages the warped image's gradient
+  into the Jacobian planes;
 - evaluates the hard-motion trigger (shift-ball coverage, rotation angle
   and, at the coarsest level, RMS displacement) at that estimate.  The
   predicate is batch-global: if any element is hard, the whole batch runs
   the LM loop on the gather path with exact current-image gradients
   (:func:`_lm_loop`), else the level kernel solves the level in one
   launch (``ops/cuda/level_solver.py``);
-- at level 0 re-evaluates the photometric Hessian at the solution (the
-  fused kernel, ``ops/cuda/fused_iter.py``, on the fast path).
+- at level 0 re-evaluates the photometric Hessian at the solution: on the
+  fast path the fused kernel (``ops/cuda/fused_iter.py``) or, under
+  "affine" illumination, whose rank-2 Schur that kernel lacks, the "shift"
+  evaluation through the stack kernel.
 
 After the cascade, elements whose finest-level IRLS scale exceeds
 ``retrack_max_scale`` are solved again with the hard-motion path forced at
@@ -23,7 +29,7 @@ every level.  Data-dependent control flow (the trigger, loop exits, the
 retrack) reads device values on the host, as ``lax.cond`` /
 ``lax.while_loop`` did inside the JAX program.
 
-Configurations outside the shipped tiers raise ``NotImplementedError``
+Configurations whose branches are not ported raise ``NotImplementedError``
 naming the ROADMAP.md port-queue item that will bring them.
 """
 
@@ -42,17 +48,21 @@ from dense_visual_odometry_torch.models.weighting import (
 from dense_visual_odometry_torch.ops import gradients as grad_ops
 from dense_visual_odometry_torch.ops import interp as interp_ops
 from dense_visual_odometry_torch.ops import pyramid as pyr_ops
+from dense_visual_odometry_torch.ops.cuda import stackwarp
 from dense_visual_odometry_torch.ops.cuda.fused_iter import fused_shift_iteration
 from dense_visual_odometry_torch.ops.cuda.level_solver import solve_level_fused
 from dense_visual_odometry_torch.ops.residuals import (
+    approximate_jacobian,
     approximate_jacobian_planes,
     normal_equations,
     warp_geometry,
     warp_residuals_packed,
+    warp_residuals_shift,
 )
 from dense_visual_odometry_torch.ops.shiftwarp import (
     compute_recenter,
     extract_parity_planes,
+    residual_displacements,
     shift_coverage,
 )
 from dense_visual_odometry_torch.utils.lie import se3
@@ -157,19 +167,15 @@ def _check_ported(cfg: RobustDVOConfig) -> None:
         )
 
     if cfg.sigma is not None:
-        raise missing("the motion prior (sigma)", 2)
+        raise missing("the motion prior (sigma)", 1)
     if cfg.use_depth_residuals:
-        raise missing("the depth-residual term", 2)
-    if cfg.illumination == "affine":
-        raise missing("affine illumination", 2)
+        raise missing("the depth-residual term", 1)
     if (cfg.recenter_blocks or 1) > 1 or (cfg.recenter_col_blocks or 1) > 1:
-        raise missing("row-block / tile recentering", 2)
+        raise missing("row-block / tile recentering", 1)
     if cfg.lm_lambda0 is None:
-        raise missing("the Gauss-Newton loop (lm_lambda0 = None)", 3)
-    if cfg.use_esm_gradients:
-        raise missing("ESM gradients", 3)
+        raise missing("the Gauss-Newton loop (lm_lambda0 = None)", 2)
     if cfg.init_scale_ladder is not None:
-        raise missing("the init-scale ladder", 3)
+        raise missing("the init-scale ladder", 2)
     fused_levels = (
         cfg.shift_stack_radius is not None
         and set(range(cfg.levels)) <= set(cfg.shift_stack_levels)
@@ -180,11 +186,11 @@ def _check_ported(cfg: RobustDVOConfig) -> None:
     )
     if not fused_levels:
         raise missing(
-            "evaluation off the frozen-window fused path ('shift', 'packed' "
-            "and 'plain' modes)", 3,
+            "evaluation off the frozen-window fused path ('packed' and "
+            "'plain' modes)", 2,
         )
     if any(cfg.stride_for_level(lv) not in (1, 2) for lv in range(cfg.levels)):
-        raise missing("grid strides other than 1 and 2", 2)
+        raise missing("grid strides other than 1 and 2", 1)
 
 
 def _bias_schur(sys, residuals, jacobian, weights):
@@ -202,6 +208,49 @@ def _bias_schur(sys, residuals, jacobian, weights):
     mu = rho / s_safe
     error = sys.error - s * mu * mu / torch.clamp(sys.count, min=1.0)
     return sys._replace(hessian=hess, rhs=rhs, error=error)
+
+
+def _affine_schur(sys, residuals, jacobian, weights, template_c):
+    """Eliminate a gain + bias pair (rank-2 Schur): the model
+    ``r ~ J delta + a * I + c`` with ``I`` the valid-mean-centred template
+    ``template_c``.  With ``N = [I, 1]``, ``S = N^T W N``, ``G = J^T W N``
+    and ``t = N^T W r``: H' = H - G S^-1 G^T, b' = b + G S^-1 t, and the
+    error drops by t^T S^-1 t / count."""
+    b = jacobian.shape[0]
+    jac = jacobian.reshape(b, -1, 6)
+    res = residuals.reshape(b, -1)
+    wts = weights.reshape(b, -1)
+    tpl = template_c.reshape(b, -1)
+    s_ii = torch.sum(wts * tpl * tpl, dim=-1)
+    s_i1 = torch.sum(wts * tpl, dim=-1)
+    s_11 = torch.sum(wts, dim=-1)
+    t_i = torch.sum(wts * tpl * res, dim=-1)
+    t_1 = torch.sum(wts * res, dim=-1)
+    det = torch.clamp(s_ii * s_11 - s_i1 * s_i1, min=1e-6)
+    g_i = torch.einsum("bni,bn->bi", jac, wts * tpl)
+    g_1 = torch.einsum("bni,bn->bi", jac, wts)
+    beta_i = (s_11 * t_i - s_i1 * t_1) / det
+    beta_1 = (s_ii * t_1 - s_i1 * t_i) / det
+    m_i = (s_11[:, None] * g_i - s_i1[:, None] * g_1) / det[:, None]
+    m_1 = (s_ii[:, None] * g_1 - s_i1[:, None] * g_i) / det[:, None]
+    hess = sys.hessian - (
+        g_i[:, :, None] * m_i[:, None, :] + g_1[:, :, None] * m_1[:, None, :]
+    )
+    rhs = sys.rhs + g_i * beta_i[:, None] + g_1 * beta_1[:, None]
+    error = sys.error - (t_i * beta_i + t_1 * beta_1) / torch.clamp(sys.count, min=1.0)
+    return sys._replace(hessian=hess, rhs=rhs, error=error)
+
+
+def _erode3(mask: torch.Tensor) -> torch.Tensor:
+    """3x3 binary erosion over the last two axes (borders erode away)."""
+    h, w = mask.shape[-2], mask.shape[-1]
+    padded = mask.new_zeros(mask.shape[:-2] + (h + 2, w + 2))
+    padded[..., 1 : h + 1, 1 : w + 1] = mask
+    out = mask
+    for dy in range(3):
+        for dx in range(3):
+            out = out & padded[..., dy : dy + h, dx : dx + w]
+    return out
 
 
 def _lm_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
@@ -280,12 +329,21 @@ def _lm_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
     return est_acc, anchor_acc, wlam, diag
 
 
+def _use_esm(cfg: RobustDVOConfig, level: int) -> bool:
+    """Whether ``level`` takes ESM gradients (on the frozen-window path)."""
+    return (
+        cfg.use_esm_gradients
+        and cfg.approximate_image2_gradient
+        and (cfg.esm_levels is None or level in cfg.esm_levels)
+    )
+
+
 class FrozenLevel(NamedTuple):
     """A level's estimate-independent inputs and its frozen window."""
 
     gray_prev: torch.Tensor  # (B, H', W') template on the strided grid
     depth_prev_m: torch.Tensor  # (B, H', W')
-    jac_planes: torch.Tensor  # (B, 6, H', W') inverse-compositional Jacobian
+    jac_planes: torch.Tensor  # (B, 6, H', W') Jacobian (ESM-averaged at ESM levels)
     u0: torch.Tensor  # (B, H', W') warp at the level's starting estimate
     v0: torch.Tensor
     valid_geom0: torch.Tensor  # (B, H', W') depth-valid and in front
@@ -304,7 +362,13 @@ def frozen_level(
     level: int,
 ) -> FrozenLevel:
     """Sobel Jacobian planes on the strided grid, and the current image's
-    window extracted once around the recentring at ``estimate0``."""
+    window extracted once around the recentring at ``estimate0``.
+
+    At an ESM level the window is sampled once at ``estimate0`` (the stack
+    kernel); the Sobel gradient of that warped image is averaged with the
+    template's wherever its whole 3x3 support is valid, and the Jacobian
+    planes are built from the average.
+    """
     stride = cfg.stride_for_level(level)
     radius = cfg.shift_stack_radius
     sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
@@ -313,13 +377,29 @@ def frozen_level(
     g1y_s = (gy1 / sgain)[..., ::stride, ::stride]
     gray_prev = gray_prev[..., ::stride, ::stride].contiguous()
     depth_prev_m = depth_prev_m[..., ::stride, ::stride].contiguous()
-    jac_planes = approximate_jacobian_planes(
-        depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
-    )
     hp, wp = gray_prev.shape[-2], gray_prev.shape[-1]
     _, u0, v0, vg0 = warp_geometry(depth_prev_m, intrinsics, estimate0, stride)
     cu0, cv0 = compute_recenter(u0, v0, radius, stride, vg0)
     planes0 = extract_parity_planes(gray_curr, cu0, cv0, hp, wp, radius, stride)
+    if _use_esm(cfg, level):
+        du0, dv0, in_ball0 = residual_displacements(
+            u0, v0, cu0, cv0, radius, stride, gray_curr.shape[-2], gray_curr.shape[-1]
+        )
+        val0 = in_ball0 & vg0
+        acc0 = stackwarp.stack_accumulate(
+            planes0, du0.contiguous(), dv0.contiguous(), radius, stride
+        )
+        gwx, gwy = grad_ops.sobel(torch.where(val0, acc0, torch.zeros_like(acc0)))
+        # Sobel on the strided grid measures d/d(grid step): divide by the
+        # stride for d/d(full-resolution pixel), as the template's.
+        gwx = gwx / (sgain * stride)
+        gwy = gwy / (sgain * stride)
+        okw = _erode3(val0)
+        g1x_s = torch.where(okw, 0.5 * (g1x_s + gwx), g1x_s)
+        g1y_s = torch.where(okw, 0.5 * (g1y_s + gwy), g1y_s)
+    jac_planes = approximate_jacobian_planes(
+        depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
+    )
     return FrozenLevel(
         gray_prev, depth_prev_m, jac_planes, u0, v0, vg0, planes0, cu0, cv0
     )
@@ -345,7 +425,9 @@ def _solve_level(
     radius = cfg.shift_stack_radius
     sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
     illum_bias = cfg.illumination == "bias"
+    illum_affine = cfg.illumination == "affine"
     image_h, image_w = gray_curr.shape[-2], gray_curr.shape[-1]
+    gray_prev_full, depth_prev_full = gray_prev, depth_prev_m
 
     fl = frozen_level(
         gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level
@@ -362,7 +444,14 @@ def _solve_level(
         rot = estimate0[:, :3, :3]
         cos_t = 0.5 * (torch.diagonal(rot, dim1=-2, dim2=-1).sum(-1) - 1.0)
         theta = torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
-        hard = hard | (theta > cfg.fallback_max_rotation)
+        # ESM's Jacobian is half evaluated at the level-start warp, so a
+        # relaxed rotation threshold may apply there.
+        max_rot = (
+            cfg.esm_fallback_max_rotation
+            if _use_esm(cfg, level) and cfg.esm_fallback_max_rotation is not None
+            else cfg.fallback_max_rotation
+        )
+        hard = hard | (theta > max_rot)
         if level == cfg.levels - 1:
             col = torch.arange(wp, dtype=torch.float32, device=dev) * stride
             row = torch.arange(hp, dtype=torch.float32, device=dev) * stride
@@ -390,6 +479,38 @@ def _solve_level(
                 torch.tensor(1.0, device=dev),
             )
 
+    def reduce_evaluation(res, jac, valid, weight_lambda):
+        """Illumination pre-fit, IRLS weights, normal equations and the
+        illumination Schur of one evaluation at the strided grid."""
+        tpl_c = None
+        if cfg.illumination is not None:
+            # Remove the best unweighted illumination fit before the robust
+            # weights; the Schur step then eliminates the weighted rest.
+            nv = torch.clamp(valid.sum(dim=(-2, -1)).to(torch.float32), min=1.0)
+            zero = torch.zeros_like(res)
+            mu_r = torch.where(valid, res, zero).sum(dim=(-2, -1)) / nv
+            res = torch.where(valid, res - mu_r[:, None, None], zero)
+            if illum_affine:
+                tpl_mu = torch.where(valid, gray_prev, zero).sum(dim=(-2, -1)) / nv
+                tpl_c = torch.where(valid, gray_prev - tpl_mu[:, None, None], zero)
+                alpha = (tpl_c * res).sum(dim=(-2, -1)) / torch.clamp(
+                    (tpl_c * tpl_c).sum(dim=(-2, -1)), min=1e-6
+                )
+                res = res - alpha[:, None, None] * tpl_c
+        if cfg.use_weighter:
+            weights, weight_lambda = t_distribution_weights_with_scale(
+                res * res, valid, cfg.weighter, event_ndim=2,
+                init_lambda=weight_lambda if cfg.weighter.warm_start else None,
+            )
+        else:
+            weights = valid.to(torch.float32)
+        sys = normal_equations(res, jac, weights, valid)
+        if illum_bias:
+            sys = _bias_schur(sys, res, jac, weights)
+        elif illum_affine:
+            sys = _affine_schur(sys, res, jac, weights, tpl_c)
+        return sys.hessian, sys.rhs, sys.error, sys.count, sys.hessian, weight_lambda
+
     def evaluate_fallback(fb_prep):
         packed, grads_packed = fb_prep
 
@@ -398,23 +519,7 @@ def _solve_level(
                 gray_prev, depth_prev_m, packed, intrinsics, estimate,
                 grads_packed=grads_packed, grid_stride=stride,
             )
-            if cfg.illumination is not None:
-                nv = torch.clamp(valid.sum(dim=(-2, -1)).to(torch.float32), min=1.0)
-                mu_r = torch.where(valid, res, torch.zeros_like(res)).sum(
-                    dim=(-2, -1)
-                ) / nv
-                res = torch.where(valid, res - mu_r[:, None, None], torch.zeros_like(res))
-            if cfg.use_weighter:
-                weights, weight_lambda = t_distribution_weights_with_scale(
-                    res * res, valid, cfg.weighter, event_ndim=2,
-                    init_lambda=weight_lambda if cfg.weighter.warm_start else None,
-                )
-            else:
-                weights = valid.to(torch.float32)
-            sys = normal_equations(res, jac, weights, valid)
-            if illum_bias:
-                sys = _bias_schur(sys, res, jac, weights)
-            return sys.hessian, sys.rhs, sys.error, sys.count, sys.hessian, weight_lambda
+            return reduce_evaluation(res, jac, valid, weight_lambda)
 
         return evaluate
 
@@ -453,7 +558,7 @@ def _solve_level(
             tolerance=cfg.tolerance, lm_lambda0=cfg.lm_lambda0,
             lm_up=cfg.lm_up, lm_down=cfg.lm_down,
             lm_lambda_max=cfg.lm_lambda_max, max_iterations=max_iter,
-            illum_bias=illum_bias,
+            illum_bias=illum_bias, illum_affine=illum_affine,
         )
         diag = LevelDiagnostics(
             iterations=its, error=err, count=count,
@@ -464,6 +569,20 @@ def _solve_level(
         return est, diag, torch.zeros((b, 6, 6), dtype=torch.float32, device=dev)
     if need_fb:
         hess = evaluate(est, anchor, wlam)[4]
+    elif illum_affine:
+        # The "shift" evaluation: the fused kernel has no rank-2 Schur.  It
+        # takes the full-resolution Jacobian of the template's gradients,
+        # strided afterwards.
+        gx1, gy1 = grad_ops.sobel(gray_prev_full)
+        pre_jac = approximate_jacobian(
+            depth_prev_full, intrinsics, gx1 / sgain, gy1 / sgain
+        )[:, ::stride, ::stride, :]
+        res, jac, valid = warp_residuals_shift(
+            gray_prev, depth_prev_m, gray_curr, intrinsics, est,
+            precomputed_jacobian=pre_jac, grid_stride=stride, radius=radius,
+            use_kernel=cfg.use_pallas_stack,
+        )
+        hess = reduce_evaluation(res, jac, valid, wlam)[4]
     else:
         _, u, v, valid_geom = warp_geometry(depth_prev_m, intrinsics, est, stride)
         hess = fused_shift_iteration(

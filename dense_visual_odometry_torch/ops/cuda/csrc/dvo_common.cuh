@@ -1,13 +1,16 @@
-// Device code shared by the level-solver and fused-iteration kernels.
+// Device code shared by the level-solver, fused-iteration and stack-warp
+// kernels.
 //
-// Both kernels evaluate the same per-pixel photometric model over the
-// strided template grid of one batch element: sample the frozen window
-// around the integer centre (cu, cv), form the residual against the
-// template, centre it (illumination "bias"), run the t-distribution scale
-// fixed point and reduce the weighted 6x6 normal equations.  The pieces
-// here are that evaluation; each kernel adds only its own front end
-// (the level kernel warps the template points itself, the fused kernel
-// reads precomputed displacements) and its own epilogue.
+// The level and fused kernels evaluate the same per-pixel photometric model
+// over the strided template grid of one batch element: sample the frozen
+// window around the integer centre (cu, cv), form the residual against the
+// template, take out the illumination pre-fit ("bias": the valid mean;
+// "affine", level kernel only: also the gain against the centred
+// template), run the t-distribution scale fixed point and reduce the
+// weighted 6x6 normal equations.  The pieces here are that evaluation; each
+// kernel adds only its own front end (the level kernel warps the template
+// points itself, the fused kernel reads precomputed displacements) and its
+// own epilogue.  The stack-warp kernel is tent_sample alone.
 //
 // Arithmetic follows the Pallas kernels operation for operation; the only
 // intended difference is the order of the block-wide sums.  Build without
@@ -22,9 +25,15 @@ namespace dvo {
 
 constexpr int kThreads = 512;  // one block of kThreads per batch element
 constexpr int kWarps = kThreads / 32;
-// Largest number of block-wide sums one reduction carries:
-// H (21) + b (6) + err + s + rho + g (6) = 36.
-constexpr int kMaxSums = 36;
+// Largest number of block-wide sums one reduction carries: H (21) + b (6)
+// + err, the bias's s + rho + g (6), and affine's s_ii + s_i1 + t_i +
+// g_i (6) = 45.
+constexpr int kMaxSums = 45;
+
+// Illumination models: kIllum of the evaluation templates below.
+constexpr int kIllumNone = 0;
+constexpr int kIllumBias = 1;
+constexpr int kIllumAffine = 2;
 
 // Tent-tap sample of the frozen window at grid pixel (i, j), displacement
 // (du, dv) from the window centre.  The TPU kernels sweep all (2r+1)^2
@@ -112,11 +121,14 @@ __device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
 
 // Residuals of one element are kept between passes in a global scratch row
 // with NaN marking invalid pixels (a valid residual is always finite: the
-// window and template are finite).
+// window and template are finite).  Under "bias" the stored residual is
+// raw and each pass subtracts the mean `mu` on the fly; under "affine" the
+// kernel rewrites the row with the pre-fitted residual once, so the passes
+// read it as it is (kBias false).
 
 // Scale fixed point of the t-distribution weights: `unroll` block-wide
-// passes over the stored residuals, each re-centred by `mu` when the
-// illumination bias is on.  Returns the final lambda.
+// passes over the stored residuals, each re-centred by `mu` when kBias.
+// Returns the final lambda.
 template <bool kBias>
 __device__ __forceinline__ float t_scale(
     const float* __restrict__ res, int npx, float mu, float lam,
@@ -141,23 +153,26 @@ __device__ __forceinline__ float t_scale(
 }
 
 // The weighted normal-equation sums over the stored residuals, in
-// out[0..kSums<kBias>): H upper triangle row-major [0, 21), sum(w J r)
-// [21, 27), sum(w r^2) at 27, and with the bias sum(w) at 28, sum(w r) at
-// 29 and sum(w J) [30, 36).
-template <bool kBias>
-constexpr int kSums = kBias ? 36 : 28;
+// out[0..kSums<kIllum>): H upper triangle row-major [0, 21), sum(w J r)
+// [21, 27), sum(w r^2) at 27; with bias or affine sum(w) at 28, sum(w r)
+// at 29 and sum(w J) [30, 36); with affine, for the centred template
+// t = gray - tpl_mu, sum(w t t) at 36, sum(w t) at 37, sum(w t r) at 38
+// and sum(w J t) [39, 45).
+template <int kIllum>
+constexpr int kSums = kIllum == kIllumAffine ? 45 : kIllum == kIllumBias ? 36 : 28;
 
-template <bool kBias>
+template <int kIllum>
 __device__ __forceinline__ void reduce_system(
-    const float* __restrict__ res, const float* __restrict__ jac, int npx,
-    float mu, bool tweights, float lam, float dof, float (&acc)[kSums<kBias>],
+    const float* __restrict__ res, const float* __restrict__ jac,
+    const float* __restrict__ gray, float tpl_mu, int npx, float mu,
+    bool tweights, float lam, float dof, float (&acc)[kSums<kIllum>],
     float* red) {
 #pragma unroll
-  for (int k = 0; k < kSums<kBias>; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < kSums<kIllum>; ++k) acc[k] = 0.0f;
   for (int p = threadIdx.x; p < npx; p += kThreads) {
     float r = res[p];
     if (isnan(r)) continue;
-    if constexpr (kBias) r = r - mu;
+    if constexpr (kIllum == kIllumBias) r = r - mu;
     const float rsq = r * r;
     const float w = tweights ? (dof + 1.0f) / (dof + rsq * lam) : 1.0f;
     float j[6], jw[6];
@@ -174,11 +189,20 @@ __device__ __forceinline__ void reduce_system(
 #pragma unroll
     for (int a = 0; a < 6; ++a) acc[21 + a] += jw[a] * r;
     acc[27] += w * rsq;
-    if constexpr (kBias) {
+    if constexpr (kIllum != kIllumNone) {
       acc[28] += w;
       acc[29] += w * r;
 #pragma unroll
       for (int a = 0; a < 6; ++a) acc[30 + a] += jw[a];
+    }
+    if constexpr (kIllum == kIllumAffine) {
+      const float t = gray[p] - tpl_mu;
+      const float wt = w * t;
+      acc[36] += wt * t;
+      acc[37] += wt;
+      acc[38] += wt * r;
+#pragma unroll
+      for (int a = 0; a < 6; ++a) acc[39 + a] += jw[a] * t;
     }
   }
   block_sum(acc, red);

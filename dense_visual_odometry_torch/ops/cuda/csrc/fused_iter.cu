@@ -65,9 +65,10 @@ __global__ void __launch_bounds__(dvo::kThreads) fused_kernel(FusedParams P) {
   if (P.use_tweights)
     lam = dvo::t_scale<kBias>(res, npx, mu, lam, P.dof, P.unroll,
                               P.normalize_scale, count_safe, red);
-  float acc[dvo::kSums<kBias>];
-  dvo::reduce_system<kBias>(res, jac, npx, mu, P.use_tweights, lam, P.dof,
-                            acc, red);
+  constexpr int kIllum = kBias ? dvo::kIllumBias : dvo::kIllumNone;
+  float acc[dvo::kSums<kIllum>];
+  dvo::reduce_system<kIllum>(res, jac, nullptr, 0.0f, npx, mu, P.use_tweights,
+                             lam, P.dof, acc, red);
 
   if (threadIdx.x == 0) {
     float* o = P.out + (size_t)b * 56;

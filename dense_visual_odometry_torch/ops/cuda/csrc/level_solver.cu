@@ -2,8 +2,8 @@
 // element.
 //
 // Replaces: dense_visual_odometry_tpu/ops/pallas/level_solver.py:268
-// _level_kernel (single frozen-window centre; no row blocks, tiles, depth
-// term, affine illumination or motion prior).
+// _level_kernel (single frozen-window centre, illumination none, "bias" or
+// "affine"; no row blocks, tiles, depth term or motion prior).
 //
 // What bounds it on an H100: per LM iteration the block streams the
 // template points (3 planes), the template, the 6 Jacobian planes and a
@@ -198,8 +198,9 @@ __device__ void lm_step(LmState& st, const LevelParams& P, float rel,
   st.it += 1;
 }
 
-template <bool kBias>
+template <int kIllum>
 __global__ void __launch_bounds__(dvo::kThreads) level_kernel(LevelParams P) {
+  constexpr bool kAffine = kIllum == dvo::kIllumAffine;
   const int b = blockIdx.x;
   const int npx = P.hp * P.wp;
   const float* planes = P.planes + (size_t)b * P.s * P.s * P.ph * P.pw;
@@ -243,7 +244,7 @@ __global__ void __launch_bounds__(dvo::kThreads) level_kernel(LevelParams P) {
     for (int k = 0; k < 12; ++k) T[k] = st.est_try[k];
 
     // Warp, mask and sample; residuals to scratch (NaN = invalid).
-    float part[2] = {0.0f, 0.0f};  // count, sum of residuals
+    float part[kAffine ? 3 : 2] = {};  // count, sum of residuals (, template)
     for (int p = threadIdx.x; p < npx; p += dvo::kThreads) {
       const int i = p / P.wp;
       const int j = p - i * P.wp;
@@ -266,28 +267,70 @@ __global__ void __launch_bounds__(dvo::kThreads) level_kernel(LevelParams P) {
         r = dvo::tent_sample(planes, P.s, P.ph, P.pw, P.radius, i, j, du, dv) - gray[p];
         part[0] += 1.0f;
         part[1] += r;
+        if constexpr (kAffine) part[2] += gray[p];
       }
       res[p] = r;
     }
     dvo::block_sum(part, red);
     const float count = part[0];
     const float count_safe = fmaxf(count, 1.0f);
-    const float mu = kBias ? part[1] / count_safe : 0.0f;
+    const float mu = kIllum != dvo::kIllumNone ? part[1] / count_safe : 0.0f;
+    float tpl_mu = 0.0f;
+    if constexpr (kAffine) {
+      // Unweighted gain pre-fit of the centred residual against the
+      // centred template, then the row rewritten with what it leaves
+      // (each thread revisits only its own pixels).
+      tpl_mu = part[2] / count_safe;
+      float fit[2] = {0.0f, 0.0f};  // sum(t r), sum(t t)
+      for (int p = threadIdx.x; p < npx; p += dvo::kThreads) {
+        const float r = res[p];
+        if (isnan(r)) continue;
+        const float t = gray[p] - tpl_mu;
+        fit[0] += t * (r - mu);
+        fit[1] += t * t;
+      }
+      dvo::block_sum(fit, red);
+      const float alpha = fit[0] / fmaxf(fit[1], 1e-6f);
+      for (int p = threadIdx.x; p < npx; p += dvo::kThreads) {
+        const float r = res[p];
+        if (!isnan(r)) res[p] = (r - mu) - alpha * (gray[p] - tpl_mu);
+      }
+    }
 
     float lam = st.wlam;
     if (P.use_tweights)
-      lam = dvo::t_scale<kBias>(res, npx, mu, lam, P.dof, P.unroll,
-                                P.normalize_scale, count_safe, red);
-    float acc[dvo::kSums<kBias>];
-    dvo::reduce_system<kBias>(res, jac, npx, mu, P.use_tweights, lam, P.dof,
-                              acc, red);
+      lam = dvo::t_scale<kIllum == dvo::kIllumBias>(
+          res, npx, mu, lam, P.dof, P.unroll, P.normalize_scale, count_safe, red);
+    float acc[dvo::kSums<kIllum>];
+    dvo::reduce_system<kIllum>(res, jac, gray, tpl_mu, npx, mu, P.use_tweights,
+                               lam, P.dof, acc, red);
 
     if (threadIdx.x == 0) {
       float h21[21], rhs[6];
       for (int k = 0; k < 21; ++k) h21[k] = acc[k];
       for (int k = 0; k < 6; ++k) rhs[k] = -acc[21 + k];
       float err = acc[27] / count_safe;
-      if constexpr (kBias) {
+      if constexpr (kAffine) {
+        // Rank-2 Schur elimination of the gain + bias pair, with
+        // S = [[s_ii, s_i1], [s_i1, s_11]], t = (t_i, t_1), G = (g_i, g_1).
+        const float s_11 = acc[28], t_1 = acc[29];
+        const float* g_1 = acc + 30;
+        const float s_ii = acc[36], s_i1 = acc[37], t_i = acc[38];
+        const float* g_i = acc + 39;
+        const float det = fmaxf(s_ii * s_11 - s_i1 * s_i1, 1e-6f);
+        const float beta_i = (s_11 * t_i - s_i1 * t_1) / det;
+        const float beta_1 = (s_ii * t_1 - s_i1 * t_i) / det;
+        float m_i[6], m_1[6];
+        for (int k = 0; k < 6; ++k) {
+          m_i[k] = (s_11 * g_i[k] - s_i1 * g_1[k]) / det;
+          m_1[k] = (s_ii * g_1[k] - s_i1 * g_i[k]) / det;
+        }
+        for (int i = 0, k = 0; i < 6; ++i)
+          for (int jj = i; jj < 6; ++jj, ++k)
+            h21[k] = h21[k] - (g_i[i] * m_i[jj] + g_1[i] * m_1[jj]);
+        for (int k = 0; k < 6; ++k) rhs[k] = rhs[k] + g_i[k] * beta_i + g_1[k] * beta_1;
+        err = err - (t_i * beta_i + t_1 * beta_1) / count_safe;
+      } else if constexpr (kIllum == dvo::kIllumBias) {
         // Rank-1 Schur elimination of the exposure bias (before the
         // prior, which this kernel does not carry).
         const float s_safe = fmaxf(acc[28], 1e-6f);
@@ -327,7 +370,7 @@ extern "C" int dvo_level_solver(
     const float* jac, const float* scal, float* out, float* scratch,
     int batch, int s, int ph, int pw, int hp, int wp, int in_cols,
     int radius, int image_h, int image_w, float dof, int unroll,
-    int use_tweights, int normalize_scale, int illum_bias, float tolerance,
+    int use_tweights, int normalize_scale, int illum, float tolerance,
     float lm_lambda0, float lm_up, float lm_down, float lm_lambda_max,
     int max_iterations, void* stream) {
   LevelParams P{planes, points, gray, jac, scal, out, scratch,
@@ -335,9 +378,12 @@ extern "C" int dvo_level_solver(
                 unroll, max_iterations, use_tweights, normalize_scale,
                 dof, tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (illum_bias)
-    level_kernel<true><<<batch, dvo::kThreads, 0, st>>>(P);
+  // illum: 0 none, 1 bias, 2 affine (dvo::kIllum*).
+  if (illum == dvo::kIllumAffine)
+    level_kernel<dvo::kIllumAffine><<<batch, dvo::kThreads, 0, st>>>(P);
+  else if (illum == dvo::kIllumBias)
+    level_kernel<dvo::kIllumBias><<<batch, dvo::kThreads, 0, st>>>(P);
   else
-    level_kernel<false><<<batch, dvo::kThreads, 0, st>>>(P);
+    level_kernel<dvo::kIllumNone><<<batch, dvo::kThreads, 0, st>>>(P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,8 +10,10 @@ plain PyTorch.  Any other device raises.
 
 Per element the loop evaluates the trial pose (warp of NaN-poisoned
 template points, ball / in-bounds / in-front masks, tent taps of the frozen
-window, optional bias centring, t-scale fixed point, weighted normal
-equations with the rank-1 bias Schur), then takes ``_lm_loop``'s step:
+window, optional illumination pre-fit (bias: valid-mean centring; affine:
+also the unweighted gain against the centred template), t-scale fixed
+point, weighted normal equations with the rank-1 bias or rank-2 gain+bias
+Schur), then takes ``_lm_loop``'s step:
 accept/reject, damping up/down and clip, damped 6x6 Cholesky solve, the
 predictive and relative stopping rules, ``exp`` update of the estimate and
 inverse update of the anchor.  Elements exit independently; the reported
@@ -146,19 +148,28 @@ def chol_solve6(h21, rhs):
 # ---------------------------------------------------------------------------
 
 
-def _reduce(res, valid, jac, lam, dof, unroll, use_tweights, normalize_scale,
-            illum_bias):
-    """Bias centring, t-scale and the weighted sums of one evaluation.
+def _reduce(res, valid, gray, jac, lam, dof, unroll, use_tweights,
+            normalize_scale, illum_bias, illum_affine):
+    """Illumination pre-fit, t-scale and the weighted sums of one evaluation.
 
     res (B, hp, wp) already zero where invalid.  -> (h21, rhs, err, count,
-    lam) with the bias Schur applied, as in ``_level_kernel``'s evaluate.
+    lam) with the bias or affine Schur applied, as in ``_level_kernel``'s
+    evaluate.
     """
     validf = valid.to(torch.float32)
     count = validf.sum(dim=(-2, -1))
     count_safe = torch.clamp(count, min=1.0)
-    if illum_bias:
+    zero = torch.zeros_like(res)
+    if illum_bias or illum_affine:
         mu0 = res.sum(dim=(-2, -1)) / count_safe
-        res = torch.where(valid, res - mu0[:, None, None], torch.zeros_like(res))
+        res = torch.where(valid, res - mu0[:, None, None], zero)
+    if illum_affine:
+        tpl_mu = torch.where(valid, gray, zero).sum(dim=(-2, -1)) / count_safe
+        tpl_c = torch.where(valid, gray - tpl_mu[:, None, None], zero)
+        alpha = (tpl_c * res).sum(dim=(-2, -1)) / torch.clamp(
+            (tpl_c * tpl_c).sum(dim=(-2, -1)), min=1e-6
+        )
+        res = torch.where(valid, res - alpha[:, None, None] * tpl_c, zero)
     rsq = res * res
     if use_tweights:
         for _ in range(unroll):
@@ -174,7 +185,25 @@ def _reduce(res, valid, jac, lam, dof, unroll, use_tweights, normalize_scale,
     h21 = tuple((jw[i] * jac[:, j]).sum(dim=(-2, -1)) for i, j in _PAIRS)
     rhs = tuple(-(jw[i] * res).sum(dim=(-2, -1)) for i in range(6))
     err = (weights * rsq).sum(dim=(-2, -1)) / count_safe
-    if illum_bias:
+    if illum_affine:
+        s_ii = (weights * tpl_c * tpl_c).sum(dim=(-2, -1))
+        s_i1 = (weights * tpl_c).sum(dim=(-2, -1))
+        s_11 = weights.sum(dim=(-2, -1))
+        t_i = (weights * tpl_c * res).sum(dim=(-2, -1))
+        t_1 = (weights * res).sum(dim=(-2, -1))
+        det = torch.clamp(s_ii * s_11 - s_i1 * s_i1, min=1e-6)
+        g_i = tuple((jw[k] * tpl_c).sum(dim=(-2, -1)) for k in range(6))
+        g_1 = tuple(jw[k].sum(dim=(-2, -1)) for k in range(6))
+        beta_i = (s_11 * t_i - s_i1 * t_1) / det
+        beta_1 = (s_ii * t_1 - s_i1 * t_i) / det
+        m_i = tuple((s_11 * g_i[k] - s_i1 * g_1[k]) / det for k in range(6))
+        m_1 = tuple((s_ii * g_1[k] - s_i1 * g_i[k]) / det for k in range(6))
+        h21 = tuple(
+            h - (g_i[i] * m_i[j] + g_1[i] * m_1[j]) for (i, j), h in zip(_PAIRS, h21)
+        )
+        rhs = tuple(r + g_i[k] * beta_i + g_1[k] * beta_1 for k, r in enumerate(rhs))
+        err = err - (t_i * beta_i + t_1 * beta_1) / count_safe
+    elif illum_bias:
         s_safe = torch.clamp(weights.sum(dim=(-2, -1)), min=1e-6)
         rho = (weights * res).sum(dim=(-2, -1))
         g6 = tuple(jw[i].sum(dim=(-2, -1)) for i in range(6))
@@ -188,7 +217,7 @@ def lm_level_plain(
     planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
     image_h, image_w, dof, unroll, use_tweights, normalize_scale, tolerance,
     lm_lambda0, lm_up, lm_down, lm_lambda_max, max_iterations,
-    illum_bias=False,
+    illum_bias=False, illum_affine=False,
 ) -> torch.Tensor:
     """Plain-PyTorch version of the level kernel: same inputs, same
     (B, 48) rows.  The loop runs while any element is active; finished
@@ -228,8 +257,8 @@ def lm_level_plain(
         valid = in_ball & in_bounds & in_front
         acc = tent_sample(planes, du, dv, radius, s)
         res = torch.where(valid, acc - gray_prev, torch.zeros_like(acc))
-        return _reduce(res, valid, jac_planes, wlam, dof, unroll, use_tweights,
-                       normalize_scale, illum_bias)
+        return _reduce(res, valid, gray_prev, jac_planes, wlam, dof, unroll,
+                       use_tweights, normalize_scale, illum_bias, illum_affine)
 
     zero = torch.zeros(b, dtype=torch.float32, device=dev)
     est0 = tuple(scal[:, 4 * r + c] for r in range(3) for c in range(4))
@@ -351,7 +380,7 @@ def _check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radi
 def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
             image_h, image_w, dof, unroll, use_tweights, normalize_scale,
             tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
-            max_iterations, illum_bias) -> torch.Tensor:
+            max_iterations, illum_bias, illum_affine) -> torch.Tensor:
     lib = build.load("level_solver")
     fn = lib.dvo_level_solver
     fn.restype = ctypes.c_int
@@ -369,8 +398,8 @@ def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
         planes.data_ptr(), points.data_ptr(), gray_prev.data_ptr(),
         jac_planes.data_ptr(), scal.data_ptr(), out.data_ptr(), scratch.data_ptr(),
         b, grid_stride, ph, pw, hp, wp, IN_COLS, radius, image_h, image_w,
-        dof, unroll, int(use_tweights), int(normalize_scale), int(illum_bias),
-        tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max, max_iterations,
+        dof, unroll, int(use_tweights), int(normalize_scale),
+        2 if illum_affine else int(illum_bias), tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max, max_iterations,
         stream,
     )
     build.check(status, "level_solver")
@@ -399,16 +428,18 @@ def lm_level(
     lm_lambda_max: float,
     max_iterations: int,
     illum_bias: bool = False,
+    illum_affine: bool = False,
 ) -> torch.Tensor:
     """Solve one level for every element: planes (B, s^2, ph, pw), points
     (B, 3, H', W') with NaN at invalid depth, gray_prev (B, H', W'),
     jac_planes (B, 6, H', W'), scal (B, 40) -> (B, 48) rows (layouts in
-    ``csrc/level_solver.cu``).  CUDA tensors run the kernel, CPU tensors
-    the plain version."""
+    ``csrc/level_solver.cu``).  ``illum_affine`` takes precedence over
+    ``illum_bias``.  CUDA tensors run the kernel, CPU tensors the plain
+    version."""
     args = (planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
             image_h, image_w, dof, unroll, use_tweights, normalize_scale,
             tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
-            max_iterations, illum_bias)
+            max_iterations, illum_bias, illum_affine)
     _check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius)
     if points.device.type == "cuda":
         return _launch(*args)
@@ -504,6 +535,7 @@ def solve_level_fused(
     lm_lambda_max: float,
     max_iterations: int,
     illum_bias: bool = False,
+    illum_affine: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """Batched wrapper: one level solved in one launch.
 
@@ -526,7 +558,7 @@ def solve_level_fused(
         normalize_scale=normalize_scale, tolerance=tolerance,
         lm_lambda0=lm_lambda0, lm_up=lm_up, lm_down=lm_down,
         lm_lambda_max=lm_lambda_max, max_iterations=max_iterations,
-        illum_bias=illum_bias,
+        illum_bias=illum_bias, illum_affine=illum_affine,
     )
     est = out[:, 0:16].reshape(b, 4, 4).clone()
     anchor = out[:, 16:32].reshape(b, 4, 4).clone()

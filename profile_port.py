@@ -3,15 +3,18 @@
 
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 
-    python3 profile_port.py
+    python3 profile_port.py [CONFIG ...]
 
-Builds the kernels, then profiles three runs over the seeded 640x480 scene
-of ``chip_smoke.py`` (``configs/tpu_fast.json``): the 16-frame
-``OdometrySession`` (B=1), and ``batched_track_pair`` at B=64 over all 15
-consecutive pairs and over the pairs that the hard-motion trigger passes
-at every level (``chip_smoke.kernel_path_pairs``).  Each run is done once unprofiled as a
-warm-up.  Prints one JSON line per run: wall time, device kernel time and
-its share of the wall time, and the kernels that took the most device time.
+CONFIG is ``tpu_fast`` (the default), ``tpu_parity`` or one of
+``chip_smoke.VARIANTS`` (``parity_affine``, ``parity_esm``).  Builds the
+kernels, then profiles, over the seeded 640x480 scene of ``chip_smoke.py``,
+``batched_track_pair`` at B=64 over all 15 consecutive pairs and over the
+pairs that the configuration's hard-motion trigger passes at every level
+(``chip_smoke.kernel_path_pairs``), and for ``tpu_fast`` the 16-frame
+``OdometrySession`` (B=1).  Each run is done once unprofiled as a warm-up.
+Prints one JSON line per run: wall time, device kernel time and its share
+of the wall time, the kernels that took the most device time, and the
+device time and launches of each of the port's own kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ import chip_smoke as cs
 from dense_visual_odometry_torch.models.session import OdometrySession
 from dense_visual_odometry_torch.ops.cuda import build
 from dense_visual_odometry_torch.parallel import batched_track_pair, stack_frame_data
+
+# Device-side names of the port's kernels (ops/cuda/csrc/).
+OWN_KERNELS = ("level_kernel", "fused_kernel", "stack_kernel")
 
 
 def breakdown(name: str, fn, top: int = 8) -> dict:
@@ -54,6 +60,11 @@ def breakdown(name: str, fn, top: int = 8) -> dict:
         "device_kernel_ms": device_ms,
         "device_busy_share": device_ms / wall_ms,
         "top": [{"name": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]],
+        "own_kernels": {
+            own: {"ms": sum(ms for k, ms, _ in rows if own in k),
+                  "count": sum(n for k, _, n in rows if own in k)}
+            for own in OWN_KERNELS
+        },
     }
 
 
@@ -66,40 +77,44 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    build.build(("level_solver", "fused_iter"))
+    build.build(("level_solver", "fused_iter", "stackwarp"))
     grays, depths, k_np, poses = cs.make_sequence()
     cam = cs.CameraModel.create(k_np, 1.0)
-    fast = cs.RobustDVOConfig.from_json(cs.CONFIGS / "tpu_fast.json")
     frames = [
         cs.robust.preprocess_frame(g, d, cam, levels=cs.LEVELS, device=dev)
         for g, d in zip(grays, depths)
     ]
     k_dev = cam.intrinsics.to(dev)
     pairs = [(i, i + 1) for i in range(cs.N_FRAMES - 1)]
-    easy = cs.kernel_path_pairs(frames, k_dev, fast, pairs)
-
-    def session():
-        s = OdometrySession(cam, fast, device=dev)
-        for g, d in zip(grays, depths):
-            s.step(g, d).matrix.cpu()
-
-    def batched(sel):
-        rows = (sel * (-(-cs.MAIN_BATCH // len(sel))))[: cs.MAIN_BATCH]
-        prev = stack_frame_data([frames[i] for i, _ in rows])
-        curr = stack_frame_data([frames[j] for _, j in rows])
-        return lambda: batched_track_pair(prev, curr, k_dev, fast).transform.cpu()
-
     print(json.dumps({"card": smi, "torch": torch.__version__}), flush=True)
-    for name, fn in (
-        ("session_b1_16_frames", session),
-        ("batched_b64_all_pairs", batched(pairs)),
-        ("batched_b64_kernel_path", batched(easy)),
-    ):
-        out = breakdown(name, fn)
-        out["frames"] = len(grays) if name.startswith("session") else cs.MAIN_BATCH
-        if name.endswith("kernel_path"):
-            out["pairs"] = easy
-        print(json.dumps(out), flush=True)
+    for config in sys.argv[1:] or ["tpu_fast"]:
+        if config in cs.VARIANTS:
+            cfg = cs.variant_config(config)
+        else:
+            cfg = cs.RobustDVOConfig.from_json(cs.CONFIGS / f"{config}.json")
+        easy = cs.kernel_path_pairs(frames, k_dev, cfg, pairs)
+
+        def session():
+            s = OdometrySession(cam, cfg, device=dev)
+            for g, d in zip(grays, depths):
+                s.step(g, d).matrix.cpu()
+
+        def batched(sel):
+            rows = (sel * (-(-cs.MAIN_BATCH // len(sel))))[: cs.MAIN_BATCH]
+            prev = stack_frame_data([frames[i] for i, _ in rows])
+            curr = stack_frame_data([frames[j] for _, j in rows])
+            return lambda: batched_track_pair(prev, curr, k_dev, cfg).transform.cpu()
+
+        runs = [("batched_b64_all_pairs", batched(pairs)),
+                ("batched_b64_kernel_path", batched(easy))]
+        if config == "tpu_fast":
+            runs.insert(0, ("session_b1_16_frames", session))
+        for name, fn in runs:
+            out = {"config": config, **breakdown(name, fn)}
+            out["frames"] = len(grays) if name.startswith("session") else cs.MAIN_BATCH
+            if name.endswith("kernel_path"):
+                out["pairs"] = easy
+            print(json.dumps(out), flush=True)
     return 0
 
 

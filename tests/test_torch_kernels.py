@@ -1,11 +1,14 @@
-"""The two kernels' plain versions against the JAX package's Pallas kernels.
+"""The kernels' plain versions against the JAX package's Pallas kernels.
 
 ``lm_level_plain`` is held against ``lm_level_pallas`` and
 ``fused_iteration_plain`` against ``fused_iteration_pallas``, both Pallas
 kernels run in interpret mode as the JAX package's own tests run them on the
-CPU.  Both sides get the same numpy arrays: a seeded synthetic scene seen
-from a second pose, at B=2 on a 30x40 grid, for grid strides 1 and 2, with
-and without the illumination bias and the relative tolerance.
+CPU (the stack kernel's plain version is held against its Pallas kernel in
+``test_torch_stackwarp.py``).  Both sides get the same numpy arrays: a
+seeded synthetic scene seen from a second pose, at B=2 on a 30x40 grid, for
+grid strides 1 and 2, without illumination, with the bias and (level
+kernel) with affine gain + bias, and with and without the relative
+tolerance.
 
 Tolerances: transforms 1e-5 absolute; iteration counts identical; err,
 count and the IRLS lambda 1e-4 relative.  The solves start from a generic
@@ -31,8 +34,9 @@ from dense_visual_odometry_torch.io import synthetic
 from dense_visual_odometry_torch.models import robust
 from dense_visual_odometry_torch.ops.cuda import fused_iter as tfused
 from dense_visual_odometry_torch.ops.cuda import level_solver as tlevel
+from dense_visual_odometry_torch.ops.cuda import stackwarp as tstack
 from dense_visual_odometry_torch.ops.residuals import warp_geometry
-from dense_visual_odometry_torch.ops.shiftwarp import residual_displacements
+from dense_visual_odometry_torch.ops.shiftwarp import residual_displacements, tent_sample
 from dense_visual_odometry_torch.utils.lie import se3
 from dense_visual_odometry_tpu.ops.pallas import fused_iter as jfused
 from dense_visual_odometry_tpu.ops.pallas import level_solver as jlevel
@@ -74,14 +78,14 @@ def _frozen(stride: int, device="cpu"):
     return cfg, fl, k_t, est0, (h, w)
 
 
-def _kernel_kwargs(cfg, stride, image_hw, illum_bias):
+def _kernel_kwargs(cfg, stride, image_hw, illum):
     return dict(
         radius=cfg.shift_stack_radius, grid_stride=stride,
         image_h=image_hw[0], image_w=image_hw[1], dof=cfg.weighter.dof, unroll=3,
         use_tweights=True, normalize_scale=True, tolerance=cfg.tolerance,
         lm_lambda0=cfg.lm_lambda0, lm_up=cfg.lm_up, lm_down=cfg.lm_down,
         lm_lambda_max=cfg.lm_lambda_max, max_iterations=cfg.max_iterations,
-        illum_bias=illum_bias,
+        illum_bias=illum == "bias", illum_affine=illum == "affine",
     )
 
 
@@ -91,14 +95,14 @@ def level_case(request):
 
 
 @pytest.mark.parametrize("rel", [None, 0.01], ids=["abs_tol", "rel_tol"])
-@pytest.mark.parametrize("illum", [None, "bias"], ids=["no_illum", "bias"])
+@pytest.mark.parametrize("illum", [None, "bias", "affine"], ids=["no_illum", "bias", "affine"])
 def test_level_solver_plain_matches_pallas(level_case, illum, rel):
     stride, cfg, fl, k, est0, image_hw = level_case
     b = est0.shape[0]
     wlam0 = torch.full((b,), 0.04)
     relt = None if rel is None else torch.full((b,), rel)
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0, relt, stride)
-    kw = _kernel_kwargs(cfg, stride, image_hw, illum == "bias")
+    kw = _kernel_kwargs(cfg, stride, image_hw, illum)
     args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
     before = tlevel.lm_level.launches
     out_t = tlevel.lm_level(*args, **kw).numpy()
@@ -168,7 +172,7 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(RuntimeError, match="no kernel"):
         tlevel.lm_level(
             z(b, 1, ph, pw), z(b, 3, hp, wp), z(b, hp, wp), z(b, 6, hp, wp), z(b, 40),
-            **_kernel_kwargs(CFG, s, (10, 10), False),
+            **_kernel_kwargs(CFG, s, (10, 10), None),
         )
     with pytest.raises(RuntimeError, match="no kernel"):
         tfused.fused_iteration(
@@ -195,10 +199,11 @@ def test_wrappers_check_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("illum", [None, "bias"], ids=["no_illum", "bias"])
+@pytest.mark.parametrize("illum", [None, "bias", "affine"], ids=["no_illum", "bias", "affine"])
 @pytest.mark.parametrize("stride", [1, 2], ids=["s1", "s2"])
 def test_cuda_kernels_match_plain(stride, illum):
-    """Each CUDA kernel against its plain version on the card, same inputs."""
+    """Each CUDA kernel against its plain version on the card, same inputs
+    (the fused kernel has no affine variant: bias there)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU build")
     cfg, fl, k, est0, image_hw = _frozen(stride, device="cuda")
@@ -206,7 +211,7 @@ def test_cuda_kernels_match_plain(stride, illum):
     wlam0 = torch.full((b,), 0.04, device="cuda")
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0,
                                        torch.full((b,), 0.01, device="cuda"), stride)
-    kw = _kernel_kwargs(cfg, stride, image_hw, illum == "bias")
+    kw = _kernel_kwargs(cfg, stride, image_hw, illum)
     args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
     before = tlevel.lm_level.launches
     out_k = tlevel.lm_level(*args, **kw)
@@ -223,8 +228,16 @@ def test_cuda_kernels_match_plain(stride, illum):
     valid = (valid & fl.valid_geom0).to(torch.float32)
     fargs = (fl.planes, du, dv, fl.gray_prev, valid, fl.jac_planes,
              torch.full((b, 1), 0.04, device="cuda"))
-    fkw = dict(radius=cfg.shift_stack_radius, grid_stride=stride, illum_bias=illum == "bias")
+    fkw = dict(radius=cfg.shift_stack_radius, grid_stride=stride, illum_bias=illum is not None)
     fk = tfused.fused_iteration(*fargs, **fkw).cpu().numpy()
     fp = tfused.fused_iteration_plain(*fargs, **fkw).cpu().numpy()
     scale = np.abs(fp).max(axis=0, keepdims=True) + 1e-30
     np.testing.assert_array_less(np.abs(fk - fp) / scale, 1e-4)
+
+    before = tstack.stack_accumulate.launches
+    sk = tstack.stack_accumulate(fl.planes, du.contiguous(), dv.contiguous(),
+                                 cfg.shift_stack_radius, stride)
+    assert tstack.stack_accumulate.launches == before + 1
+    sp = tent_sample(fl.planes, du, dv, cfg.shift_stack_radius, stride)
+    m = valid.cpu().numpy() > 0
+    np.testing.assert_allclose(sk.cpu().numpy()[m], sp.cpu().numpy()[m], rtol=1e-5)

@@ -2,8 +2,10 @@
 
 Both packages read the shipped tier configs verbatim (this file
 ``tpu_fast``; ``test_torch_track_parity.py`` runs the same checks on
-``tpu_parity`` and ``test_torch_session.py`` the session, each file one JAX
-compile) and track the same pyramids (the JAX package's, handed over as
+``tpu_parity``, ``test_torch_track_affine.py`` and ``test_torch_track_esm.py``
+on ``tpu_parity`` with affine illumination and with ESM gradients, and
+``test_torch_session.py`` the session, each file one JAX compile) and track
+the same pyramids (the JAX package's, handed over as
 numpy through ``frame_data_from_numpy``) of a seeded synthetic 120x160 scene:
 B=2 per batch, the port on the CPU (plain versions of the kernels), the JAX
 package with its Pallas kernels in interpret mode.
@@ -26,6 +28,7 @@ edge and the last bit of its projection decides its validity; XLA:CPU fuses
 multiply-adds there and PyTorch does not.
 """
 
+import json
 from pathlib import Path
 
 import jax
@@ -38,6 +41,7 @@ from dense_visual_odometry_torch.camera import CameraModel as TCamera
 from dense_visual_odometry_torch.config import RobustDVOConfig as TConfig
 from dense_visual_odometry_torch.io import synthetic
 from dense_visual_odometry_torch.models import robust as trobust
+from dense_visual_odometry_torch.ops.cuda import stackwarp as tstack
 from dense_visual_odometry_torch.parallel import batched_track_pair, stack_frame_data
 from dense_visual_odometry_tpu.camera import CameraModel as JCamera
 from dense_visual_odometry_tpu.config import RobustDVOConfig as JConfig
@@ -77,9 +81,10 @@ def _batch(scene, name):
     return prev, curr
 
 
-def tier_configs(name: str):
-    path = CONFIGS / f"{name}.json"
-    return JConfig.from_json(path), TConfig.from_json(path)
+def tier_configs(name: str, **overrides):
+    """Both packages' configs of ``configs/<name>.json``, with ``overrides``."""
+    data = {**json.loads((CONFIGS / f"{name}.json").read_text()), **overrides}
+    return JConfig.from_dict(data), TConfig.from_dict(data)
 
 
 def jax_track(scene, jcfg) -> dict:
@@ -93,10 +98,16 @@ def jax_track(scene, jcfg) -> dict:
     return out
 
 
-def check_track_pair(scene, tcfg, ref, batch, monkeypatch):
-    """Track ``batch`` with the port; hold it against ``ref`` and the truth."""
-    calls = {"fallback": 0, "retrack": 0}
+def check_track_pair(scene, tcfg, ref, batch, monkeypatch, stack_on_easy=False,
+                     hard_trips_trigger=True):
+    """Track ``batch`` with the port; hold it against ``ref`` and the truth.
+    ``stack_on_easy``: whether the easy batch samples through the stack
+    warp (ESM gradients or the "shift" evaluation); ``hard_trips_trigger``:
+    whether the hard batch's three-frame pair trips the hard-motion trigger
+    (else only the retrack runs the gather loop, at every level)."""
+    calls = {"fallback": 0, "retrack": 0, "stack": 0}
     lm_loop, solve_level = trobust._lm_loop, trobust._solve_level
+    stack_accumulate = tstack.stack_accumulate
 
     def spy_lm_loop(*a, **kw):
         calls["fallback"] += 1
@@ -106,8 +117,13 @@ def check_track_pair(scene, tcfg, ref, batch, monkeypatch):
         calls["retrack"] += force_hard is not None
         return solve_level(*a, force_hard=force_hard, **kw)
 
+    def spy_stack_accumulate(*a, **kw):
+        calls["stack"] += 1
+        return stack_accumulate(*a, **kw)
+
     monkeypatch.setattr(trobust, "_lm_loop", spy_lm_loop)
     monkeypatch.setattr(trobust, "_solve_level", spy_solve_level)
+    monkeypatch.setattr(tstack, "stack_accumulate", spy_stack_accumulate)
 
     prev, curr = _batch(scene, batch)
     tprev = stack_frame_data([trobust.frame_data_from_numpy(f, "cpu") for f in prev])
@@ -115,9 +131,14 @@ def check_track_pair(scene, tcfg, ref, batch, monkeypatch):
     res = batched_track_pair(tprev, tcurr, torch.tensor(scene["k"]), tcfg)
 
     if batch == "hard":
-        assert calls["retrack"] > 0 and calls["fallback"] > tcfg.levels
+        assert calls["retrack"] > 0
+        if hard_trips_trigger:
+            assert calls["fallback"] > tcfg.levels
+        else:
+            assert calls["fallback"] == tcfg.levels
     else:
         assert calls["retrack"] == 0 and calls["fallback"] == 0
+        assert (calls["stack"] > 0) == stack_on_easy
     np.testing.assert_array_equal(
         res.diagnostics.iterations.numpy(), ref.diagnostics.iterations
     )
@@ -153,8 +174,8 @@ def test_track_pair_matches_jax(scene, fast_tier, batch, monkeypatch):
 @pytest.mark.parametrize(
     "change",
     [
-        {"sigma": 1.0}, {"use_depth_residuals": True}, {"illumination": "affine"},
-        {"recenter_blocks": 2}, {"lm_lambda0": None}, {"use_esm_gradients": True},
+        {"sigma": 1.0}, {"use_depth_residuals": True}, {"init_scale_ladder": (0.5,)},
+        {"recenter_blocks": 2}, {"lm_lambda0": None}, {"grid_strides": (3, 2, 1, 1)},
         {"use_fused_iteration": False}, {"shift_stack_levels": (0, 1)},
     ],
     ids=lambda d: next(iter(d)),
