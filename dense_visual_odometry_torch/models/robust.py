@@ -52,7 +52,6 @@ from dense_visual_odometry_torch.ops.cuda import stackwarp
 from dense_visual_odometry_torch.ops.cuda.fused_iter import fused_shift_iteration
 from dense_visual_odometry_torch.ops.cuda.level_solver import solve_level_fused
 from dense_visual_odometry_torch.ops.residuals import (
-    approximate_jacobian,
     approximate_jacobian_planes,
     normal_equations,
     warp_geometry,
@@ -405,6 +404,23 @@ def frozen_level(
     )
 
 
+def _shift_jacobian(fl, gray_prev_full, intrinsics, cfg, level) -> torch.Tensor:
+    """The "shift" evaluation's Jacobian (B, H', W', 6): the template's own,
+    without ESM's average.  The reference builds it at full resolution and
+    strides it; on the strided grid the same elementwise terms give the
+    same values, so off ESM levels the level's planes are it."""
+    if not _use_esm(cfg, level):
+        return fl.jac_planes.permute(0, 2, 3, 1)
+    stride = cfg.stride_for_level(level)
+    sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
+    gx1, gy1 = grad_ops.sobel(gray_prev_full)
+    planes = approximate_jacobian_planes(
+        fl.depth_prev_m, intrinsics, (gx1 / sgain)[..., ::stride, ::stride],
+        (gy1 / sgain)[..., ::stride, ::stride], grid_stride=stride,
+    )
+    return planes.permute(0, 2, 3, 1)
+
+
 def _solve_level(
     gray_prev: torch.Tensor,
     depth_prev_m: torch.Tensor,
@@ -427,7 +443,7 @@ def _solve_level(
     illum_bias = cfg.illumination == "bias"
     illum_affine = cfg.illumination == "affine"
     image_h, image_w = gray_curr.shape[-2], gray_curr.shape[-1]
-    gray_prev_full, depth_prev_full = gray_prev, depth_prev_m
+    gray_prev_full = gray_prev
 
     fl = frozen_level(
         gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level
@@ -570,17 +586,11 @@ def _solve_level(
     if need_fb:
         hess = evaluate(est, anchor, wlam)[4]
     elif illum_affine:
-        # The "shift" evaluation: the fused kernel has no rank-2 Schur.  It
-        # takes the full-resolution Jacobian of the template's gradients,
-        # strided afterwards.
-        gx1, gy1 = grad_ops.sobel(gray_prev_full)
-        pre_jac = approximate_jacobian(
-            depth_prev_full, intrinsics, gx1 / sgain, gy1 / sgain
-        )[:, ::stride, ::stride, :]
+        # The "shift" evaluation: the fused kernel has no rank-2 Schur.
+        pre_jac = _shift_jacobian(fl, gray_prev_full, intrinsics, cfg, level)
         res, jac, valid = warp_residuals_shift(
             gray_prev, depth_prev_m, gray_curr, intrinsics, est,
             precomputed_jacobian=pre_jac, grid_stride=stride, radius=radius,
-            use_kernel=cfg.use_pallas_stack,
         )
         hess = reduce_evaluation(res, jac, valid, wlam)[4]
     else:

@@ -95,9 +95,11 @@ def shift_stack_sample_cuda(
     grid_stride: int,
     coord_mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``shift_stack_sample`` through the stack kernel: recentre, extract
-    the parity planes, accumulate.  image (B, H, W); u, v, coord_mask
-    (B, H', W') -> (values, 0 where invalid; valid)."""
+    """Sample image (B, H, W) at the full-resolution coordinates u, v
+    (B, H', W') of a stride-s grid through the stack kernel: recentre,
+    extract the parity planes, accumulate.  ``coord_mask`` marks the pixels
+    whose coordinates enter the recentring mean.  -> (values, 0 where
+    invalid; valid: in bounds and inside the ball)."""
     planes, du, dv, valid = prepare_shift_stack(
         image, u, v, radius, grid_stride, coord_mask
     )

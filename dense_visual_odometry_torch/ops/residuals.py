@@ -17,7 +17,6 @@ import torch
 
 from dense_visual_odometry_torch.ops.cuda.stackwarp import shift_stack_sample_cuda
 from dense_visual_odometry_torch.ops.interp import nearest_sample_packed
-from dense_visual_odometry_torch.ops.shiftwarp import shift_stack_sample
 
 
 class ResidualSystem(NamedTuple):
@@ -160,16 +159,14 @@ def warp_residuals_shift(
     precomputed_jacobian: Optional[torch.Tensor] = None,
     grid_stride: int = 1,
     radius: int = 3,
-    use_kernel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Residuals + Jacobian with the current image sampled through the
     recentred shift window: valid while the displacement from the window
     centre stays inside the radius-``radius`` ball.
 
-    ``use_kernel`` (the config's ``use_pallas_stack``) samples through the
-    stack kernel (:func:`~dense_visual_odometry_torch.ops.cuda.stackwarp.shift_stack_sample_cuda`),
-    else through the plain full sweep
-    (:func:`~dense_visual_odometry_torch.ops.shiftwarp.shift_stack_sample`).
+    The current image is sampled by the stack kernel
+    (:func:`~dense_visual_odometry_torch.ops.cuda.stackwarp.shift_stack_sample_cuda`;
+    its plain version on CPU tensors).
     The Jacobian is ``precomputed_jacobian`` (B, H', W', 6) or exact, from
     the ``pack_pair_f16`` (gx, gy) plane ``grads_packed`` sampled nearest.
     -> (residuals, jacobian (B, H', W', 6), valid), zero outside ``valid``.
@@ -177,8 +174,9 @@ def warp_residuals_shift(
     pts_t, u, v, valid_geom = warp_geometry(
         depth_prev_m, intrinsics, transform, grid_stride
     )
-    sample = shift_stack_sample_cuda if use_kernel else shift_stack_sample
-    warped, warp_ok = sample(gray_curr, u, v, radius, grid_stride, valid_geom)
+    warped, warp_ok = shift_stack_sample_cuda(
+        gray_curr, u, v, radius, grid_stride, valid_geom
+    )
     valid = valid_geom & warp_ok
     residuals = torch.where(valid, warped - gray_prev, torch.zeros_like(warped))
     if precomputed_jacobian is not None:
@@ -192,22 +190,6 @@ def warp_residuals_shift(
             pts_t, gx, gy, intrinsics[..., 0, 0], intrinsics[..., 1, 1], valid
         )
     return residuals, jacobian, valid
-
-
-def approximate_jacobian(
-    depth_prev_m: torch.Tensor,
-    intrinsics: torch.Tensor,
-    grad_x_prev: torch.Tensor,
-    grad_y_prev: torch.Tensor,
-) -> torch.Tensor:
-    """Constant (inverse-compositional) Jacobian (B, H, W, 6) from the
-    template's gradients at full resolution, zero at invalid depth."""
-    points = deproject_grid(depth_prev_m, intrinsics)
-    valid = depth_prev_m > 0.0
-    return warp_jacobian_times_grad(
-        points, grad_x_prev, grad_y_prev,
-        intrinsics[..., 0, 0], intrinsics[..., 1, 1], valid,
-    )
 
 
 def approximate_jacobian_planes(

@@ -1,7 +1,7 @@
 """Frozen-window ("shift ball") geometry shared by the solver and the kernels.
 
 Counterparts of ``dense_visual_odometry_tpu/ops/shiftwarp.py``
-(``shift_coverage``, ``shift_stack_sample``) and of the helpers in
+(``shift_coverage``) and of the helpers in
 ``dense_visual_odometry_tpu/ops/pallas/stackwarp.py`` (``compute_recenter``,
 ``residual_displacements``, ``extract_parity_planes``,
 ``prepare_shift_stack``).  A level samples the current image through a
@@ -156,53 +156,6 @@ def prepare_shift_stack(
     du, dv, valid = residual_displacements(u, v, cu, cv, radius, grid_stride, h, w)
     planes = extract_parity_planes(image, cu, cv, hp, wp, radius, grid_stride)
     return planes, du, dv, valid
-
-
-def shift_stack_sample(
-    image: torch.Tensor,
-    u: torch.Tensor,
-    v: torch.Tensor,
-    radius: int,
-    grid_stride: int,
-    coord_mask: torch.Tensor,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sample image (B, H, W) at the full-resolution coordinates u, v
-    (B, H', W') of a stride-s grid by the full (2r+1)^2-tap shift sweep
-    over the recentred window, rows then columns ascending.
-
-    -> (values, 0 where invalid; valid: in bounds and inside the ball).
-    The plain version of the sampling that the stack kernel does on the
-    parity planes (``ops/cuda/stackwarp.py``); ``coord_mask`` marks the
-    pixels whose coordinates enter the recentring mean.
-    """
-    if radius < 1:
-        raise ValueError("radius must be >= 1")
-    b, h, w = image.shape
-    hp, wp = u.shape[-2], u.shape[-1]
-    s = grid_stride
-    cu, cv = compute_recenter(u, v, radius, s, coord_mask)
-    du, dv, valid = residual_displacements(u, v, cu, cv, radius, s, h, w)
-    # window[p + k] == image[p + c + k] for |k| <= r: (B, H + 2r, W + 2r).
-    center_bound = 4 * radius
-    pad = radius + center_bound
-    padded = F.pad(image.to(torch.float32)[:, None], (pad, pad, pad, pad))[:, 0]
-    wpad = padded.shape[-1]
-    dev = image.device
-    rows = center_bound + cv.to(torch.int64)[:, None] + torch.arange(h + 2 * radius, device=dev)
-    cols = center_bound + cu.to(torch.int64)[:, None] + torch.arange(w + 2 * radius, device=dev)
-    idx = rows[:, :, None] * wpad + cols[:, None, :]
-    window = torch.gather(padded.reshape(b, -1), 1, idx.reshape(b, -1)).reshape(
-        b, h + 2 * radius, w + 2 * radius
-    )
-    acc = torch.zeros_like(du)
-    for ky in range(-radius, radius + 1):
-        wy = torch.clamp(1.0 - torch.abs(dv - ky), min=0.0)
-        row_slice = window[:, radius + ky : radius + ky + (hp - 1) * s + 1 : s, :]
-        for kx in range(-radius, radius + 1):
-            wx = torch.clamp(1.0 - torch.abs(du - kx), min=0.0)
-            shifted = row_slice[:, :, radius + kx : radius + kx + (wp - 1) * s + 1 : s]
-            acc = acc + (wy * wx) * shifted
-    return torch.where(valid, acc, torch.zeros_like(acc)), valid
 
 
 def tent_sample(

@@ -6,11 +6,13 @@ package's Pallas stack kernel runs in interpret mode, as its own tests run
 it on the CPU; the port's wrappers take their plain versions because the
 tensors lie on the CPU.
 
-- ``shift_stack_sample`` (the full sweep), ``shift_stack_sample_cuda`` and
-  ``stack_accumulate`` against ``shift_stack_sample`` and the Pallas
+- ``shift_stack_sample_cuda`` and ``stack_accumulate`` against the XLA
+  full sweep ``shift_stack_sample`` and the Pallas
   ``shift_stack_sample_pallas`` / ``stack_accumulate_pallas``;
-- ``warp_residuals_shift`` through either sampler, with a precomputed and
-  with an exact (packed-gradient) Jacobian; ``approximate_jacobian``;
+- ``warp_residuals_shift`` against either JAX sampler, with a precomputed
+  and with an exact (packed-gradient) Jacobian;
+- the "shift" evaluation's Jacobian on the strided grid against JAX's
+  full-resolution ``approximate_jacobian``, strided, with and without ESM;
 - ``_affine_schur`` and ``_erode3`` of the solver.
 
 Tolerance: 1e-5 relative on values and Jacobians, masks identical.  The
@@ -18,11 +20,15 @@ full sweep and the parity-plane sweep add the same non-zero taps in
 different orders at stride 2, so their last bits may differ.
 """
 
+import json
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from dense_visual_odometry_torch.config import RobustDVOConfig
 from dense_visual_odometry_torch.io import synthetic
 from dense_visual_odometry_torch.models import robust as trobust
 from dense_visual_odometry_torch.ops import gradients as tgrad
@@ -38,6 +44,7 @@ from dense_visual_odometry_tpu.ops import shiftwarp as jshift
 from dense_visual_odometry_tpu.ops.pallas import stackwarp as jstack
 
 GRID_H, GRID_W, RADIUS = 30, 40, 3
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 RTOL = 1e-5
 
 
@@ -81,19 +88,16 @@ def _assert_close(actual, expected):
 def test_shift_stack_sample_matches_jax(case):
     s, img, u, v, vg = case["s"], case["gray_curr"], case["u"], case["v"], case["vg"]
     args = (img, u, v, RADIUS, s, vg)
-    full, ok_full = tshift.shift_stack_sample(*args)
     kern, ok_kern = tstack.shift_stack_sample_cuda(*args)
     jargs = (_jx(img), _jx(u), _jx(v))
     jkw = dict(radius=RADIUS, grid_stride=s, coord_mask=_jx(vg))
     j_full, j_ok_full = jshift.shift_stack_sample(*jargs, **jkw)
     j_pl, j_ok_pl = jstack.shift_stack_sample_pallas(*jargs, **jkw, interpret=True)
-    valid = _np(ok_full)
+    valid = _np(ok_kern)
     assert 0 < valid.sum() < valid.size
-    for ok in (ok_kern, j_ok_full, j_ok_pl):
+    for ok in (j_ok_full, j_ok_pl):
         np.testing.assert_array_equal(_np(ok), valid)
-    np.testing.assert_array_equal(full.numpy(), _np(j_full))  # same sweep
     _assert_close(kern, j_pl)
-    _assert_close(full, j_pl)
     _assert_close(kern, j_full)
 
 
@@ -118,19 +122,20 @@ def test_stack_accumulate_matches_pallas(case):
     _assert_close(acc.numpy()[m], _np(j_acc)[m])
 
 
-@pytest.mark.parametrize("use_kernel", [True, False], ids=["kernel", "full_sweep"])
+@pytest.mark.parametrize("jax_pallas", [True, False], ids=["kernel", "full_sweep"])
 @pytest.mark.parametrize("jacobian", ["precomputed", "exact"])
-def test_warp_residuals_shift_matches_jax(case, jacobian, use_kernel):
+def test_warp_residuals_shift_matches_jax(case, jacobian, jax_pallas):
     s, k = case["s"], case["k"]
     gp, dp, gc = case["gray_prev"], case["depth_prev"], case["gray_curr"]
     gx1, gy1 = tgrad.sobel(gp)
     t_jac = j_jac = t_grads = j_grads = None
     if jacobian == "precomputed":
-        t_jac = tres.approximate_jacobian(dp, k, gx1 / 8.0, gy1 / 8.0)
-        j_full = jres.approximate_jacobian(_jx(gp), _jx(dp), _jx(k), _jx(gx1 / 8.0), _jx(gy1 / 8.0))
-        _assert_close(t_jac, j_full)
-        t_jac = t_jac[:, ::s, ::s, :]
-        j_jac = j_full[:, ::s, ::s, :]
+        t_jac = tres.approximate_jacobian_planes(
+            dp[:, ::s, ::s], k, (gx1 / 8.0)[:, ::s, ::s], (gy1 / 8.0)[:, ::s, ::s], s
+        ).permute(0, 2, 3, 1)
+        j_jac = jres.approximate_jacobian(
+            _jx(gp), _jx(dp), _jx(k), _jx(gx1 / 8.0), _jx(gy1 / 8.0)
+        )[:, ::s, ::s, :]
     else:
         gx2, gy2 = tgrad.sobel(gc)
         t_grads = tinterp.pack_pair_f16(gx2 / 8.0, gy2 / 8.0)
@@ -139,18 +144,41 @@ def test_warp_residuals_shift_matches_jax(case, jacobian, use_kernel):
     gp_s, dp_s = gp[:, ::s, ::s], dp[:, ::s, ::s]
     t = tres.warp_residuals_shift(
         gp_s, dp_s, gc, k, case["transform"], grads_packed=t_grads,
-        precomputed_jacobian=t_jac, grid_stride=s, radius=RADIUS, use_kernel=use_kernel,
+        precomputed_jacobian=t_jac, grid_stride=s, radius=RADIUS,
     )
     j = jres.warp_residuals_shift(
         _jx(gp_s), _jx(dp_s), _jx(gc), _jx(k), _jx(case["transform"]),
         grads_packed=j_grads, precomputed_jacobian=j_jac, grid_stride=s,
-        radius=RADIUS, use_pallas=use_kernel,
+        radius=RADIUS, use_pallas=jax_pallas,
     )
     res, jac, valid = (x.numpy() for x in t)
     np.testing.assert_array_equal(valid, _np(j[2]))
     assert 0 < valid.sum() < valid.size
     _assert_close(res, j[0])
     _assert_close(jac, j[1])
+
+
+@pytest.mark.parametrize("esm", [False, True], ids=["no_esm", "esm"])
+def test_shift_jacobian_matches_jax(case, esm):
+    """Affine's "shift" Hessian takes the template's own Jacobian on the
+    strided grid, also at an ESM level, whose planes hold ESM's average."""
+    s, k, gp, dp = case["s"], case["k"], case["gray_prev"], case["depth_prev"]
+    data = json.loads((CONFIGS / "tpu_parity.json").read_text())
+    cfg = RobustDVOConfig.from_dict({
+        **data, "illumination": "affine", "use_esm_gradients": esm,
+        "esm_levels": [0], "grid_strides": [s, 2, 1, 1],
+    })
+    fl = trobust.frozen_level(gp, dp, case["gray_curr"], k, case["transform"], cfg, 0)
+    jac = trobust._shift_jacobian(fl, gp, k, cfg, 0)
+    sgain = trobust._SOBEL_GAIN
+    gx1, gy1 = tgrad.sobel(gp)
+    j_jac = jres.approximate_jacobian(
+        _jx(gp), _jx(dp), _jx(k), _jx(gx1 / sgain), _jx(gy1 / sgain)
+    )[:, ::s, ::s, :]
+    _assert_close(jac, j_jac)
+    # At the ESM level the level's own planes differ from it.
+    differs = not torch.equal(jac, fl.jac_planes.permute(0, 2, 3, 1))
+    assert differs == esm
 
 
 def test_affine_schur_matches_jax():
