@@ -11,11 +11,19 @@ Phases, each printing one JSON line:
 2. build: compiles ``ops/cuda/csrc/*.cu`` for sm_90a, one nvcc per source, all
    started together;
 3. kernels: each CUDA kernel against its plain PyTorch version on the same
-   inputs on the card, at the 640x480 main path's level shapes (B=8), with
-   the tolerances stated in ``TOLERANCES`` (the level kernel without
-   illumination, with the bias and with affine gain + bias; the stack kernel
-   at levels 0 and 3); kernel and plain times, and for the stack kernel the
-   time of ``F.grid_sample`` on the same samples;
+   inputs on the card, at the 640x480 main path's level shapes, with the
+   tolerances stated in ``TOLERANCES``: the level kernel at levels 0 and 3
+   for B=1, 8 and 64 (the batch sizes of the session, the kernel checks of
+   earlier slices and the batched runs), without illumination, with the
+   bias and with affine gain + bias, under both stopping rules, each with
+   the launch geometry it chose (cluster size, pixels per CTA, shared bytes,
+   resident or streamed inputs, the clusters the card holds at once); the
+   stack kernel at levels 0 and 3 for the same batch sizes; at B=8 and 64
+   the level kernel also at every cluster size and input residency that
+   fits, timed; at B=8 the fused kernel.  Kernel times, plain times (the
+   plain level solver only up to B=8: at B=64 it is compared, not timed)
+   and for the stack kernel the time of ``F.grid_sample`` on the same
+   samples;
 4. main path: ``batched_track_pair`` at B=64 on ``configs/tpu_fast.json``,
    ``configs/tpu_parity.json`` and the parity tier with affine illumination
    (``parity_affine``) and with ESM gradients (``parity_esm``), each over all
@@ -53,6 +61,7 @@ from dense_visual_odometry_torch.ops.cuda.fused_iter import (
     fused_iteration,
     fused_iteration_plain,
 )
+from dense_visual_odometry_torch.ops.cuda import level_solver
 from dense_visual_odometry_torch.ops.cuda.level_solver import (
     level_inputs,
     lm_level,
@@ -67,7 +76,10 @@ ROOT = Path(__file__).resolve().parent
 CONFIGS = ROOT / "configs"
 HEIGHT, WIDTH, LEVELS = 480, 640, 4
 N_FRAMES = 16
-KERNEL_BATCH = 8
+KERNEL_BATCHES = (1, 8, 64)
+FUSED_BATCH = 8
+PLAIN_TIMED_MAX_BATCH = 8
+STRICT_MAX_BATCH = 8  # see level_agrees
 MAIN_BATCH = 64
 SEED = 0
 
@@ -87,10 +99,12 @@ OPS_WARP = 40
 OPS_VALID = 120
 OPS_STACK = 56
 
-# Kernel against plain version: same inputs, same arithmetic; only the order
-# of the block-wide sums differs.  Poses in metres / rotation entries; sums
-# relative to the largest magnitude of their field.  The stack kernel sums no
-# block: its samples on the valid pixels relative to the largest sample.
+# Kernel against plain version: same inputs, same arithmetic; the fused
+# kernel's block-wide sums run in another order, the level kernel's sums are
+# float64 on both sides (level_agrees).  Poses in metres / rotation entries;
+# sums relative to the largest magnitude of their field.  The stack kernel
+# sums no block: its samples on the valid pixels relative to the largest
+# sample.
 TOLERANCES = {"pose_atol": 1e-4, "sum_rtol": 1e-4, "scale_rtol": 1e-3,
               "sample_rtol": 1e-5}
 # The parity tier's variants on the main path: configs/tpu_parity.json read
@@ -247,9 +261,10 @@ FUSED_FIELDS = {
 }
 
 
-def kernel_batch(frames, poses, dev):
-    """B pairs (i, i+1) for the kernel checks, with the true transforms."""
-    pairs = [(i, i + 1) for i in range(KERNEL_BATCH)]
+def kernel_batch(frames, poses, dev, batch):
+    """``batch`` consecutive pairs (i, i+1), cycling over the sequence, for
+    the kernel checks, with the true transforms."""
+    pairs = [(i % (N_FRAMES - 1), i % (N_FRAMES - 1) + 1) for i in range(batch)]
     prev = stack_frame_data([frames[i] for i, _ in pairs])
     curr = stack_frame_data([frames[j] for _, j in pairs])
     gt = torch.as_tensor(
@@ -272,7 +287,10 @@ def start_estimates(gt: torch.Tensor, level: int) -> torch.Tensor:
     return se3.exp(torch.as_tensor(xi, device=gt.device)) @ gt
 
 
-def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel):
+def level_case(prev, curr, gt, cam, dev, level, illum, rel):
+    """The level kernel's inputs at one level of the batch, from the
+    level-start estimates, under ``configs/tpu_fast.json``: -> (args,
+    kwargs) of ``lm_level``."""
     cfg = RobustDVOConfig.from_json(CONFIGS / "tpu_fast.json")
     s = cfg.stride_for_level(level)
     k = cam.at(level).to(dev)
@@ -294,34 +312,107 @@ def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel):
         max_iterations=cfg.max_iterations_for_level(level),
         illum_bias=illum == "bias", illum_affine=illum == "affine",
     )
-    args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
-    out_k = lm_level(*args, **kwargs)
-    out_p = lm_level_plain(*args, **kwargs)
-    torch.cuda.synchronize()
+    return (fl.planes, points, fl.gray_prev, fl.jac_planes, scal), kwargs
+
+
+def level_agrees(out_k, out_p):
+    """-> (ok, field errors, elements whose valid count or iterations
+    differ) of level-kernel rows against plain rows.
+
+    Up to B=8 (``STRICT_MAX_BATCH``) every field is held to its tolerance
+    and counts and iterations must be equal.  At B=64 the transforms are
+    held to ``pose_atol`` and the differing elements are counted, not
+    refused.  Both sides add in float64 and round once, so their totals
+    agree bit for bit unless a float64 total lies within its rounding
+    error of a float32 rounding boundary; over 64 elements x 76,800
+    pixels that happens now and then, the pose then differs in its last
+    bit, a template pixel on a validity edge (the ball, the image bounds)
+    is counted on one side only, and the LM runs may part by an
+    iteration.  With float32 sums, whose totals depend on their order, the
+    PR 2 kernel parted from the plain version on 2-8 of the 64 elements in
+    every level-0 case (PERF.md)."""
     errs = field_errors(out_k, out_p, LEVEL_FIELDS)
-    its_k = out_k[:, 36].cpu().numpy()
-    its_p = out_p[:, 36].cpu().numpy()
+    differing = int(((out_k[:, 35] != out_p[:, 35]) | (out_k[:, 36] != out_p[:, 36])).sum())
     ok = (
         bool(torch.isfinite(out_k).all())
         and errs["est"]["max_abs"] <= TOLERANCES["pose_atol"]
         and errs["anchor"]["max_abs"] <= TOLERANCES["pose_atol"]
-        and errs["err"]["max_rel"] <= TOLERANCES["scale_rtol"]
-        and errs["wlam"]["max_rel"] <= TOLERANCES["scale_rtol"]
-        and errs["count"]["max_abs"] <= 0.0
-        and bool((its_k == its_p).all())
     )
+    if out_k.shape[0] <= STRICT_MAX_BATCH:
+        ok = (
+            ok
+            and errs["err"]["max_rel"] <= TOLERANCES["scale_rtol"]
+            and errs["wlam"]["max_rel"] <= TOLERANCES["scale_rtol"]
+            and differing == 0
+        )
+    return ok, errs, differing
+
+
+def check_level_geometries(prev, curr, gt, cam, dev, level):
+    """The level kernel (affine, rel. tolerance) at every cluster size that
+    fits the level, with resident and streamed inputs wherever they fit,
+    against one plain run: the geometries the wrapper may choose at other
+    batch sizes and on other cards."""
+    args, kwargs = level_case(prev, curr, gt, cam, dev, level, "affine", 0.01)
+    hp, wp = args[1].shape[-2:]
+    out_p = lm_level_plain(*args, **kwargs)
+    runs = []
+    for cluster in level_solver.CLUSTER_SIZES:
+        layout = level_solver._layout(hp, wp, cluster) if cluster <= hp else None
+        if layout is None:
+            continue
+        band, stride, resident, _ = layout
+        for res in sorted({resident, False}, reverse=True):
+            planes = level_solver.RESIDENT_PLANES if res else 1
+            geo = level_solver.LevelGeometry(
+                cluster, band, stride, res,
+                level_solver.STATIC_SHARED_BYTES + 4 * planes * stride, None)
+            out_k = level_solver._launch(*args, **kwargs, geometry=geo)
+            torch.cuda.synchronize()
+            ok, errs, differing = level_agrees(out_k, out_p)
+            ms = time_ms(lambda: level_solver._launch(*args, **kwargs, geometry=geo), 5, dev)
+            runs.append({"cluster": cluster, "inputs": "resident" if res else "streamed",
+                         "ok": ok, "ms": ms, "elements_differing": differing,
+                         "est_max_abs": errs["est"]["max_abs"],
+                         "err_max_rel": errs["err"]["max_rel"],
+                         "wlam_max_rel": errs["wlam"]["max_rel"],
+                         "count_max_abs": errs["count"]["max_abs"],
+                         "iterations_max_abs": errs["iterations"]["max_abs"]})
+    return {"phase": "kernel", "kernel": "level_solver_geometries", "level": level,
+            "batch": args[1].shape[0], "shape": [hp, wp], "illumination": "affine",
+            "ok": all(r["ok"] for r in runs), "runs": runs}
+
+
+def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel):
+    args, kwargs = level_case(prev, curr, gt, cam, dev, level, illum, rel)
+    points = args[1]
+    b, s = points.shape[0], kwargs["grid_stride"]
+    geo = level_solver.launch_geometry(points, s, kwargs["illum_bias"], kwargs["illum_affine"])
+    out_k = lm_level(*args, **kwargs)
+    out_p = lm_level_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    ok, errs, differing = level_agrees(out_k, out_p)
+    its_k = out_k[:, 36].cpu().numpy()
+    its_p = out_p[:, 36].cpu().numpy()
     ms = time_ms(lambda: lm_level(*args, **kwargs), 10, dev)
-    plain_ms = time_ms(lambda: lm_level_plain(*args, **kwargs), 2, dev)
-    npx = fl.gray_prev.shape[-2] * fl.gray_prev.shape[-1]
+    plain_ms = None
+    if b <= PLAIN_TIMED_MAX_BATCH:
+        plain_ms = time_ms(lambda: lm_level_plain(*args, **kwargs), 2, dev)
+    npx = points.shape[-2] * points.shape[-1]
     nbytes = 4 * sum(t.numel() for t in args) + 4 * out_k.numel()
     ops = float(
         (out_k[:, 36].double() * (npx * OPS_WARP + out_k[:, 35].double() * OPS_VALID)).sum()
     )
     return {
         "phase": "kernel", "kernel": "level_solver", "level": level, "grid_stride": s,
-        "shape": list(fl.gray_prev.shape), "illumination": illum, "rel": rel,
-        "ok": ok, "errors": errs, "iterations_kernel": its_k.tolist(),
-        "iterations_plain": its_p.tolist(), "ms": ms, "plain_ms": plain_ms,
+        "batch": b, "shape": list(args[2].shape), "illumination": illum, "rel": rel,
+        "geometry": {"cluster": geo.cluster, "pixels_per_cta": geo.band_pixels,
+                     "shared_bytes": geo.shared_bytes,
+                     "inputs": "resident" if geo.resident else "streamed",
+                     "max_active_clusters": geo.max_active_clusters},
+        "ok": ok, "errors": errs, "elements_differing": differing,
+        "iterations_kernel": its_k.tolist(), "iterations_plain": its_p.tolist(),
+        "ms": ms, "plain_ms": plain_ms,
         "bytes": nbytes, "ops": ops, **bound(nbytes, ops),
     }
 
@@ -371,10 +462,12 @@ def check_fused_kernel(prev, curr, gt, cam, dev, illum):
     }
 
 
-def check_stack_kernel(prev, curr, gt, cam, dev, level):
-    """The stack kernel against ``tent_sample`` on the frozen window of a
-    level at its start estimates, and ``F.grid_sample`` on the same
-    samples (the library yardstick, bilinear, zeros outside the image)."""
+def stack_case(prev, curr, gt, cam, dev, level):
+    """The stack kernel's inputs: the frozen window of a level at its start
+    estimates under ``configs/tpu_parity.json``, the displacements of the
+    template grid, and ``F.grid_sample`` on the same samples (the library
+    yardstick, bilinear, zeros outside the image): -> (args of
+    ``stack_accumulate``, valid pixels, the library call)."""
     cfg = RobustDVOConfig.from_json(CONFIGS / "tpu_parity.json")
     s = cfg.stride_for_level(level)
     r = cfg.shift_stack_radius
@@ -386,10 +479,6 @@ def check_stack_kernel(prev, curr, gt, cam, dev, level):
     )
     image_h, image_w = image.shape[-2:]
     du, dv, in_ball = residual_displacements(fl.u0, fl.v0, fl.cu, fl.cv, r, s, image_h, image_w)
-    du, dv = du.contiguous(), dv.contiguous()
-    valid = in_ball & fl.valid_geom0
-    out_k = stack_accumulate(fl.planes, du, dv, r, s)
-    out_p = tent_sample(fl.planes, du, dv, r, s)
     grid = torch.stack(
         [2.0 * fl.u0 / (image_w - 1) - 1.0, 2.0 * fl.v0 / (image_h - 1) - 1.0], dim=-1
     )
@@ -398,6 +487,16 @@ def check_stack_kernel(prev, curr, gt, cam, dev, level):
         return F.grid_sample(image[:, None], grid, mode="bilinear", padding_mode="zeros",
                              align_corners=True)[:, 0]
 
+    args = (fl.planes, du.contiguous(), dv.contiguous(), r, s)
+    return args, in_ball & fl.valid_geom0, library
+
+
+def check_stack_kernel(prev, curr, gt, cam, dev, level):
+    """The stack kernel against ``tent_sample`` and ``F.grid_sample``."""
+    args, valid, library = stack_case(prev, curr, gt, cam, dev, level)
+    planes, du, dv, r, s = args
+    out_k = stack_accumulate(*args)
+    out_p = tent_sample(*args)
     out_l = library()
     torch.cuda.synchronize()
     kv, pv = out_k[valid].double(), out_p[valid].double()
@@ -409,15 +508,16 @@ def check_stack_kernel(prev, curr, gt, cam, dev, level):
         and int(valid.sum()) > 0
         and errors["samples"]["max_rel"] <= TOLERANCES["sample_rtol"]
     )
-    ms = time_ms(lambda: stack_accumulate(fl.planes, du, dv, r, s), 20, dev)
-    plain_ms = time_ms(lambda: tent_sample(fl.planes, du, dv, r, s), 5, dev)
+    ms = time_ms(lambda: stack_accumulate(*args), 20, dev)
+    plain_ms = time_ms(lambda: tent_sample(*args), 5, dev)
     library_ms = time_ms(library, 20, dev)
     npx = du.numel()
-    nbytes = 4 * (fl.planes.numel() + 3 * npx)
+    nbytes = 4 * (planes.numel() + 3 * npx)
     ops = float(npx * OPS_STACK)
     return {
         "phase": "kernel", "kernel": "stackwarp", "level": level, "grid_stride": s,
-        "shape": list(du.shape), "valid_pixels": int(valid.sum()), "ok": ok,
+        "batch": du.shape[0], "shape": list(du.shape), "valid_pixels": int(valid.sum()),
+        "ok": ok,
         "errors": errors,
         "library_max_abs_diff": float((out_l[valid].double() - kv).abs().max()),
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -524,20 +624,26 @@ def main() -> int:
 
 def kernel_checks(frames, poses, cam, dev) -> list:
     """Phase 3: every kernel against its plain version at the main path's
-    level shapes (B=8); raises if one disagrees."""
-    prev, curr, gt = kernel_batch(frames, poses, dev)
+    level shapes and batch sizes; raises if one disagrees."""
     checks = []
-    for level in (0, LEVELS - 1):
-        for illum in (None, "bias", "affine"):
-            for rel in (0.01, None):
-                checks.append(check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel))
+    for batch in KERNEL_BATCHES:
+        prev, curr, gt = kernel_batch(frames, poses, dev, batch)
+        for level in (0, LEVELS - 1):
+            for illum in (None, "bias", "affine"):
+                for rel in (0.01, None):
+                    checks.append(
+                        check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel))
+                    emit(checks[-1])
+            checks.append(check_stack_kernel(prev, curr, gt, cam, dev, level))
+            emit(checks[-1])
+        if batch in (FUSED_BATCH, MAIN_BATCH):
+            for level in (0, LEVELS - 1):
+                checks.append(check_level_geometries(prev, curr, gt, cam, dev, level))
                 emit(checks[-1])
-    for illum in (None, "bias"):
-        checks.append(check_fused_kernel(prev, curr, gt, cam, dev, illum))
-        emit(checks[-1])
-    for level in (0, LEVELS - 1):
-        checks.append(check_stack_kernel(prev, curr, gt, cam, dev, level))
-        emit(checks[-1])
+        if batch == FUSED_BATCH:
+            for illum in (None, "bias"):
+                checks.append(check_fused_kernel(prev, curr, gt, cam, dev, illum))
+                emit(checks[-1])
     failed = [c for c in checks if not c["ok"]]
     if failed:
         raise AssertionError(f"{len(failed)} kernel checks disagree with the plain versions")
@@ -650,9 +756,11 @@ def run(dev: torch.device, smi: str) -> list:
         }
 
     level0 = next(c for c in checks if c["kernel"] == "level_solver" and c["level"] == 0
-                  and c["illumination"] is None and c["rel"] == 0.01)
+                  and c["batch"] == FUSED_BATCH and c["illumination"] is None
+                  and c["rel"] == 0.01)
     fused0 = next(c for c in checks if c["kernel"] == "fused_iter" and c["illumination"] is None)
-    stack0 = next(c for c in checks if c["kernel"] == "stackwarp" and c["level"] == 0)
+    stack0 = next(c for c in checks if c["kernel"] == "stackwarp" and c["level"] == 0
+                  and c["batch"] == FUSED_BATCH)
     kernels = [
         summary("level_solver", "dense_visual_odometry_torch/ops/cuda/csrc/level_solver.cu",
                 "dense_visual_odometry_tpu/ops/pallas/level_solver.py:268", level0,

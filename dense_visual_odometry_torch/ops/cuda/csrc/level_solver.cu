@@ -1,30 +1,69 @@
-// One pyramid level's whole Levenberg-Marquardt solve, one block per batch
-// element.
+// One pyramid level's whole Levenberg-Marquardt solve, one batch element
+// over a thread-block cluster.
 //
 // Replaces: dense_visual_odometry_tpu/ops/pallas/level_solver.py:268
 // _level_kernel (single frozen-window centre, illumination none, "bias" or
 // "affine"; no row blocks, tiles, depth term or motion prior).
 //
-// What bounds it on an H100: per LM iteration the block streams the
-// template points (3 planes), the template, the 6 Jacobian planes and a
-// residual scratch row several times (one pass to warp and sample, `unroll`
-// passes for the t-scale, one for the normal equations), separated by
-// block-wide reductions and a serial 6x6 solve on one thread.  With one
-// block per element a batch of B uses min(B, 132) SMs, so small batches are
-// latency bound (B = 1 runs on one SM) and large ones are bound by those
-// bytes, mostly served from L2.
+// Geometry.  Element b runs on cluster b of C CTAs (C in {1, 2, 4, 8, 16},
+// chosen by level_solver.py's level_geometry from the batch and the level's
+// size); CTA rank k owns the band of template rows
+// [k * H' / C, (k + 1) * H' / C).  The band's residuals live in shared
+// memory for the whole launch (the warp pass writes them; the affine
+// pre-fit, the `unroll` t-scale passes and the normal equations read them),
+// so no residual row goes through device memory.  When the band's points
+// (3 planes), template (1) and Jacobian (6) fit beside its residuals in the
+// block's shared memory ("resident"), they are copied in once per launch
+// with cp.async; otherwise ("streamed") they are read from device memory
+// once per LM iteration.  The frozen window is read through L1/L2 at <= 4
+// tent taps per pixel.  Each thread takes several pixels per trip, their
+// loads issued before use.
 //
-// What the design does about it: the iteration never leaves the block, so
-// one launch covers the level (the Pallas kernel's reason to exist carries
-// over: no per-iteration launches or host round trips); the window is read
-// at <= 4 taps per pixel straight from the parity planes instead of the
-// TPU's 49 rolled-tap sweep; the reductions are warp shuffles.  Spreading an
-// element over several blocks (clusters) is left for later work.
+// Sums.  Each per-pixel term is formed in float32 as the plain version
+// forms it, then added in float64 and the total rounded once to float32.
+// The float64 error of a level's sum (< 1e-11 relative) is far below a
+// float32 rounding step, so the totals are the same in any order: the
+// kernel agrees bit for bit with lm_level_plain, which sums in float64 too,
+// on the card and on the CPU, except where a float64 total falls within
+// that error of a float32 rounding boundary.  Without it, a pose one bit
+// off moves a template pixel across a validity edge (the ball, the image
+// bounds) now and then, and the two runs part.  The order is still fixed,
+// so a run repeats bit for bit: each thread over its pixels in ascending
+// order, warp shuffles, the CTA's warps in ascending order, then the
+// cluster's ranks in ascending order through distributed shared memory.
+// Every rank adds up the same partials in the same order and so holds the
+// same totals.
+//
+// The LM step (accept or reject, damping, 6x6 Cholesky, stopping rules,
+// SE(3) update) runs on one thread of rank 0, which publishes the trial
+// pose, the scale and the loop state; the other ranks read them from its
+// shared memory.
+//
+// What bounds it on an H100: at the main path's sizes, latency, not bytes
+// or operations.  Per LM iteration an element does 5-6 cluster-wide
+// reductions (warp pass, affine pre-fit, `unroll` t-scale steps, normal
+// equations), each a CTA barrier, a cluster barrier and remote reads, and
+// the serial LM step on one thread, then the publish barrier: about 16 us
+// an iteration with 640 pixels per CTA (level 3), about 30 us with 4,800
+// resident pixels (level 0).  Streamed bands (B=64 at level 0, 38,400
+// pixels per CTA) read the Jacobian, points and template from device
+// memory every iteration: about 150 us an iteration.  The float64 sums
+// cost about a fifth of the time (PERF.md).
+#include <cooperative_groups.h>
 #include <float.h>
+#include <stdint.h>
 
 #include "dvo_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+constexpr int kPixPerTrip = 4;  // pixels a thread loads before it computes
+constexpr int kMaxCluster = 16;  // largest cluster the launch may ask for
+// Upper bound of the static shared memory below; level_solver.py adds it
+// to the dynamic bytes when it sizes a geometry (STATIC_SHARED_BYTES).
+constexpr int kStaticSharedBytes = 8192;
 
 struct LevelParams {
   const float* planes;  // (B, s*s, ph, pw)
@@ -33,9 +72,9 @@ struct LevelParams {
   const float* jac;     // (B, 6, hp, wp)
   const float* scal;    // (B, in_cols) scalar row, layout below
   float* out;           // (B, 48) result row, layout below
-  float* scratch;       // (B, hp * wp) residuals between passes
-  int s, ph, pw, hp, wp, in_cols, radius, image_h, image_w;
+  int ph, pw, hp, wp, in_cols, radius, image_h, image_w;
   int unroll, max_iterations, use_tweights, normalize_scale;
+  int band_stride;      // floats per resident plane in shared memory
   float dof, tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max;
 };
 // scal: [0:16) est0 | [16:32) anchor0 | 32 wlam0 | 33 fx | 34 fy | 35 cx
@@ -124,16 +163,23 @@ __device__ void chol_solve6(const float h[21], const float rhs[6], float x[6]) {
   }
 }
 
-struct LmState {
+// What every rank needs of the LM state to run the next evaluation.
+struct Published {
+  float est_try[12];
+  float wlam;
   int it, done;
-  float lm_lam, wlam, err_acc, count_acc;
-  float est_acc[12], anchor_acc[12], est_try[12], anchor_try[12];
+};
+
+struct LmState {
+  Published pub;
+  float lm_lam, err_acc, count_acc;
+  float est_acc[12], anchor_acc[12], anchor_try[12];
   float hess_acc[21], rhs_acc[6];
 };
 
-// One LM step on the evaluation at est_try (thread 0 only): accept or
-// reject, adapt the damping, solve, test the stopping rules and move the
-// trial point; _lm_loop's semantics with a per-element exit.
+// One LM step on the evaluation at pub.est_try (one thread of rank 0):
+// accept or reject, adapt the damping, solve, test the stopping rules and
+// move the trial point; _lm_loop's semantics with a per-element exit.
 __device__ void lm_step(LmState& st, const LevelParams& P, float rel,
                         const float h21[21], const float rhs[6], float err,
                         float count, float lam) {
@@ -141,7 +187,7 @@ __device__ void lm_step(LmState& st, const LevelParams& P, float rel,
   const bool take = (err < st.err_acc) && ok_eval;
   if (take) {
     for (int k = 0; k < 12; ++k) {
-      st.est_acc[k] = st.est_try[k];
+      st.est_acc[k] = st.pub.est_try[k];
       st.anchor_acc[k] = st.anchor_try[k];
     }
     for (int k = 0; k < 21; ++k) st.hess_acc[k] = h21[k];
@@ -171,7 +217,7 @@ __device__ void lm_step(LmState& st, const LevelParams& P, float rel,
   pred = pred / fmaxf(st.count_acc, 1.0f);
   const bool converged =
       pred < P.tolerance || (rel >= 0.0f && pred < rel * fabsf(st.err_acc));
-  const bool done2 = st.done || (converged && ok_eval) || !ok ||
+  const bool done2 = st.pub.done || (converged && ok_eval) || !ok ||
                      lm >= P.lm_lambda_max;
 
   float inc[12], inc_inv[12], tmp[12];
@@ -184,128 +230,302 @@ __device__ void lm_step(LmState& st, const LevelParams& P, float rel,
     for (int k = 0; k < 12; ++k) st.anchor_acc[k] = tmp[k];
   }
   if (!done2) {
-    compose(inc, st.est_acc, st.est_try);
+    compose(inc, st.est_acc, st.pub.est_try);
     compose(inc_inv, st.anchor_acc, st.anchor_try);
   } else {
     for (int k = 0; k < 12; ++k) {
-      st.est_try[k] = st.est_acc[k];
+      st.pub.est_try[k] = st.est_acc[k];
       st.anchor_try[k] = st.anchor_acc[k];
     }
   }
   st.lm_lam = lm;
-  st.wlam = lam;
-  st.done = done2;
-  st.it += 1;
+  st.pub.wlam = lam;
+  st.pub.done = done2;
+  st.pub.it += 1;
 }
 
-template <int kIllum>
-__global__ void __launch_bounds__(dvo::kThreads) level_kernel(LevelParams P) {
-  constexpr bool kAffine = kIllum == dvo::kIllumAffine;
-  const int b = blockIdx.x;
-  const int npx = P.hp * P.wp;
-  const float* planes = P.planes + (size_t)b * P.s * P.s * P.ph * P.pw;
-  const float* ptx = P.points + (size_t)b * 3 * npx;
-  const float* pty = ptx + npx;
-  const float* ptz = pty + npx;
-  const float* gray = P.gray + (size_t)b * npx;
-  const float* jac = P.jac + (size_t)b * 6 * npx;
-  const float* scal = P.scal + (size_t)b * P.in_cols;
-  float* res = P.scratch + (size_t)b * npx;
+// The static shared memory of a CTA.
+struct CtaShared {
+  double warp[dvo::kWarps][dvo::kMaxSums];  // each warp's partials
+  double part[2][dvo::kMaxSums];  // the CTA's partials, read by every rank
+  double tot[dvo::kMaxSums];      // the cluster's totals
+  Published view;                // this rank's copy of rank 0's pub
+  LmState st;                    // rank 0 only
+};
+static_assert(sizeof(CtaShared) <= kStaticSharedBytes, "raise kStaticSharedBytes");
 
-  __shared__ float red[(dvo::kWarps + 1) * dvo::kMaxSums];
-  __shared__ LmState st;
+// Cluster-wide float64 sums of N per-thread partials, rounded to float32
+// into out; every thread of every rank holds the same totals afterwards.
+// `phase` alternates the CTA's partial buffer, so a rank still reading the
+// previous reduction's partials of a slower rank never sees them
+// overwritten: a rank writes a buffer again only after the next cluster
+// barrier, which every rank reaches only once it has read the buffer.
+template <int N>
+__device__ __forceinline__ void cluster_sum(const double (&v)[N], float (&out)[N], CtaShared& sh,
+                                            int& phase, const cg::cluster_group& cl, int nrank) {
+  static_assert(N <= dvo::kMaxSums, "too many sums");
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    double x = v[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0) sh.warp[warp][k] = x;
+  }
+  __syncthreads();
+  double* part = sh.part[phase];
+  if (threadIdx.x < N) {
+    double x = sh.warp[0][threadIdx.x];
+    for (int w = 1; w < dvo::kWarps; ++w) x += sh.warp[w][threadIdx.x];
+    part[threadIdx.x] = x;
+  }
+  cl.sync();
+  if (threadIdx.x < N) {
+    // All remote loads first, then the sum in rank order.
+    double p[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      p[r] = r < nrank ? *cl.map_shared_rank(part + threadIdx.x, r) : 0.0;
+    double x = p[0];
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < nrank) x += p[r];
+    sh.tot[threadIdx.x] = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < N; ++k) out[k] = (float)sh.tot[k];
+  phase ^= 1;
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Issue the copy of n floats into shared memory (dst 16-byte aligned): in
+// 16-byte pieces when the source is aligned too, else float by float.
+__device__ __forceinline__ void copy_band(float* dst, const float* src, int n) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int q = threadIdx.x; q < n4; q += dvo::kThreads) cp_async16(dst + 4 * q, src + 4 * q);
+    done = 4 * n4;
+  }
+  for (int p = done + threadIdx.x; p < n; p += dvo::kThreads) cp_async4(dst + p, src + p);
+}
+
+template <int kIllum, int S, bool kResident>
+__global__ void __launch_bounds__(dvo::kThreads, 1) level_kernel(LevelParams P) {
+  constexpr bool kAffine = kIllum == dvo::kIllumAffine;
+  const cg::cluster_group cl = cg::this_cluster();
+  const int nrank = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int b = blockIdx.x / nrank;
+  const int npx = P.hp * P.wp;
+  const int row0 = rank * P.hp / nrank;
+  const int off = row0 * P.wp;                           // band's first pixel
+  const int n = ((rank + 1) * P.hp / nrank - row0) * P.wp;  // band's pixels
+  const float* planes = P.planes + (size_t)b * S * S * P.ph * P.pw;
+  const float* scal = P.scal + (size_t)b * P.in_cols;
+
+  __shared__ CtaShared sh;
+  extern __shared__ __align__(16) float dyn[];
+  float* res = dyn;
+  // The band's inputs: copies in shared memory, or device memory.
+  const float *ptx, *pty, *ptz, *gray, *jac;
+  int jst;  // stride between Jacobian planes
+  {
+    const float* g_pts = P.points + (size_t)b * 3 * npx + off;
+    const float* g_gray = P.gray + (size_t)b * npx + off;
+    const float* g_jac = P.jac + (size_t)b * 6 * npx + off;
+    if constexpr (kResident) {
+      // After the residuals: points (3), template, Jacobian (6), each a
+      // plane of band_stride floats (RESIDENT_PLANES = 11 in all).
+      const int st = P.band_stride;
+      float* d = dyn + st;
+      for (int c = 0; c < 3; ++c) copy_band(d + c * st, g_pts + (size_t)c * npx, n);
+      copy_band(d + 3 * st, g_gray, n);
+      for (int c = 0; c < 6; ++c) copy_band(d + (4 + c) * st, g_jac + (size_t)c * npx, n);
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      ptx = d; pty = d + st; ptz = d + 2 * st; gray = d + 3 * st; jac = d + 4 * st;
+      jst = st;
+    } else {
+      ptx = g_pts; pty = g_pts + npx; ptz = g_pts + 2 * npx; gray = g_gray; jac = g_jac;
+      jst = npx;
+    }
+  }
+  auto ld = [](const float* p) {
+    if constexpr (kResident) return *p;
+    else return __ldg(p);
+  };
 
   const float fx = scal[33], fy = scal[34], cx = scal[35], cy = scal[36];
   const float cu = scal[37], cv = scal[38], rel = scal[39];
   const float rad = (float)P.radius;
-  const float stride = (float)P.s;
+  const float stride = (float)S;
   const float wmax = (float)(P.image_w - 1), hmax = (float)(P.image_h - 1);
 
   if (threadIdx.x == 0) {
-    st.it = 0;
-    st.done = 0;
-    st.lm_lam = P.lm_lambda0;
-    st.wlam = scal[32];
-    st.err_acc = FLT_MAX;
-    st.count_acc = 0.0f;
+    Published& v = rank == 0 ? sh.st.pub : sh.view;
+    v.it = 0;
+    v.done = 0;
+    v.wlam = scal[32];
     for (int r = 0; r < 3; ++r)
-      for (int c = 0; c < 4; ++c) {
-        st.est_acc[4 * r + c] = st.est_try[4 * r + c] = scal[4 * r + c];
-        st.anchor_acc[4 * r + c] = st.anchor_try[4 * r + c] = scal[16 + 4 * r + c];
-      }
-    for (int k = 0; k < 21; ++k) st.hess_acc[k] = 0.0f;
-    for (int k = 0; k < 6; ++k) st.rhs_acc[k] = 0.0f;
+      for (int c = 0; c < 4; ++c) v.est_try[4 * r + c] = scal[4 * r + c];
+    if (rank == 0) {
+      LmState& st = sh.st;
+      st.lm_lam = P.lm_lambda0;
+      st.err_acc = FLT_MAX;
+      st.count_acc = 0.0f;
+      for (int r = 0; r < 3; ++r)
+        for (int c = 0; c < 4; ++c) {
+          st.est_acc[4 * r + c] = scal[4 * r + c];
+          st.anchor_acc[4 * r + c] = st.anchor_try[4 * r + c] = scal[16 + 4 * r + c];
+        }
+      for (int k = 0; k < 21; ++k) st.hess_acc[k] = 0.0f;
+      for (int k = 0; k < 6; ++k) st.rhs_acc[k] = 0.0f;
+      sh.view = st.pub;
+    }
   }
+  if constexpr (kResident) asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
-  while (!st.done && st.it < P.max_iterations) {
+  int phase = 0;
+  // Every rank holds the same view, so every rank runs the same trips.
+  while (!sh.view.done && sh.view.it < P.max_iterations) {
     float T[12];
 #pragma unroll
-    for (int k = 0; k < 12; ++k) T[k] = st.est_try[k];
+    for (int k = 0; k < 12; ++k) T[k] = sh.view.est_try[k];
 
-    // Warp, mask and sample; residuals to scratch (NaN = invalid).
-    float part[kAffine ? 3 : 2] = {};  // count, sum of residuals (, template)
-    for (int p = threadIdx.x; p < npx; p += dvo::kThreads) {
-      const int i = p / P.wp;
-      const int j = p - i * P.wp;
-      const float px = ptx[p], py = pty[p], pz = ptz[p];
-      const float xp = T[0] * px + T[1] * py + T[2] * pz + T[3];
-      const float yp = T[4] * px + T[5] * py + T[6] * pz + T[7];
-      const float zp = T[8] * px + T[9] * py + T[10] * pz + T[11];
-      const bool in_front = zp > (float)1e-6;
-      const float z_safe = in_front ? zp : 1.0f;
-      const float u = (fx * xp + cx * zp) / z_safe;
-      const float v = (fy * yp + cy * zp) / z_safe;
-      const float du = u - ((float)j * stride + cu);
-      const float dv = v - ((float)i * stride + cv);
-      const bool in_ball = du > -rad && du < rad && dv > -rad && dv < rad;
-      const float x0 = floorf(u), y0 = floorf(v);
-      const bool in_bounds =
-          x0 >= 0.0f && y0 >= 0.0f && x0 + 1.0f <= wmax && y0 + 1.0f <= hmax;
-      float r = nanf("");
-      if (in_ball && in_bounds && in_front) {
-        r = dvo::tent_sample(planes, P.s, P.ph, P.pw, P.radius, i, j, du, dv) - gray[p];
-        part[0] += 1.0f;
-        part[1] += r;
-        if constexpr (kAffine) part[2] += gray[p];
+    // Warp, mask and sample; residuals to shared memory (NaN = invalid).
+    double part[kAffine ? 3 : 2] = {};  // count, sum of residuals (, template)
+    for (int base = threadIdx.x; base < n; base += kPixPerTrip * dvo::kThreads) {
+      float X[kPixPerTrip], Y[kPixPerTrip], Z[kPixPerTrip], G[kPixPerTrip];
+#pragma unroll
+      for (int k = 0; k < kPixPerTrip; ++k) {
+        const int p = base + k * dvo::kThreads;
+        const bool in = p < n;
+        X[k] = in ? ld(ptx + p) : nanf("");
+        Y[k] = in ? ld(pty + p) : nanf("");
+        Z[k] = in ? ld(ptz + p) : nanf("");
+        G[k] = in ? ld(gray + p) : 0.0f;
       }
-      res[p] = r;
+#pragma unroll
+      for (int k = 0; k < kPixPerTrip; ++k) {
+        const int p = base + k * dvo::kThreads;
+        if (p >= n) break;
+        const int q = off + p;
+        const int i = q / P.wp;
+        const int j = q - i * P.wp;
+        const float px = X[k], py = Y[k], pz = Z[k];
+        const float xp = T[0] * px + T[1] * py + T[2] * pz + T[3];
+        const float yp = T[4] * px + T[5] * py + T[6] * pz + T[7];
+        const float zp = T[8] * px + T[9] * py + T[10] * pz + T[11];
+        const bool in_front = zp > (float)1e-6;
+        const float z_safe = in_front ? zp : 1.0f;
+        const float u = (fx * xp + cx * zp) / z_safe;
+        const float v = (fy * yp + cy * zp) / z_safe;
+        const float du = u - ((float)j * stride + cu);
+        const float dv = v - ((float)i * stride + cv);
+        const bool in_ball = du > -rad && du < rad && dv > -rad && dv < rad;
+        const float x0 = floorf(u), y0 = floorf(v);
+        const bool in_bounds =
+            x0 >= 0.0f && y0 >= 0.0f && x0 + 1.0f <= wmax && y0 + 1.0f <= hmax;
+        float r = nanf("");
+        if (in_ball && in_bounds && in_front) {
+          r = dvo::tent_sample<S>(planes, P.ph, P.pw, P.radius, i, j, du, dv) - G[k];
+          part[0] += 1.0;
+          part[1] += (double)r;
+          if constexpr (kAffine) part[2] += (double)G[k];
+        }
+        res[p] = r;
+      }
     }
-    dvo::block_sum(part, red);
-    const float count = part[0];
+    float sums[kAffine ? 3 : 2];
+    cluster_sum(part, sums, sh, phase, cl, nrank);
+    const float count = sums[0];
     const float count_safe = fmaxf(count, 1.0f);
-    const float mu = kIllum != dvo::kIllumNone ? part[1] / count_safe : 0.0f;
+    const float mu = kIllum != dvo::kIllumNone ? sums[1] / count_safe : 0.0f;
     float tpl_mu = 0.0f;
     if constexpr (kAffine) {
       // Unweighted gain pre-fit of the centred residual against the
-      // centred template, then the row rewritten with what it leaves
+      // centred template, then the band rewritten with what it leaves
       // (each thread revisits only its own pixels).
-      tpl_mu = part[2] / count_safe;
-      float fit[2] = {0.0f, 0.0f};  // sum(t r), sum(t t)
-      for (int p = threadIdx.x; p < npx; p += dvo::kThreads) {
+      tpl_mu = sums[2] / count_safe;
+      double fit_part[2] = {0.0, 0.0};  // sum(t r), sum(t t)
+      for (int p = threadIdx.x; p < n; p += dvo::kThreads) {
         const float r = res[p];
         if (isnan(r)) continue;
-        const float t = gray[p] - tpl_mu;
-        fit[0] += t * (r - mu);
-        fit[1] += t * t;
+        const float t = ld(gray + p) - tpl_mu;
+        fit_part[0] += (double)(t * (r - mu));
+        fit_part[1] += (double)(t * t);
       }
-      dvo::block_sum(fit, red);
+      float fit[2];
+      cluster_sum(fit_part, fit, sh, phase, cl, nrank);
       const float alpha = fit[0] / fmaxf(fit[1], 1e-6f);
-      for (int p = threadIdx.x; p < npx; p += dvo::kThreads) {
+      for (int p = threadIdx.x; p < n; p += dvo::kThreads) {
         const float r = res[p];
-        if (!isnan(r)) res[p] = (r - mu) - alpha * (gray[p] - tpl_mu);
+        if (!isnan(r)) res[p] = (r - mu) - alpha * (ld(gray + p) - tpl_mu);
+      }
+    }
+    // Under "bias" the stored residual is raw and each pass centres it;
+    // under "affine" the band already holds the pre-fitted residual.
+    constexpr bool kCentre = kIllum == dvo::kIllumBias;
+
+    float lam = sh.view.wlam;
+    if (P.use_tweights) {
+      for (int it = 0; it < P.unroll; ++it) {
+        double part_s[1] = {0.0};
+        for (int p = threadIdx.x; p < n; p += dvo::kThreads) {
+          float r = res[p];
+          if (isnan(r)) continue;
+          if constexpr (kCentre) r = r - mu;
+          const float rsq = r * r;
+          part_s[0] += (double)(rsq * dvo::t_weight(rsq, lam, P.dof));
+        }
+        float tot[1];
+        cluster_sum(part_s, tot, sh, phase, cl, nrank);
+        float sigma_sq = tot[0];
+        if (P.normalize_scale) sigma_sq = sigma_sq / count_safe;
+        lam = 1.0f / fmaxf(sigma_sq, 1e-20f);
       }
     }
 
-    float lam = st.wlam;
-    if (P.use_tweights)
-      lam = dvo::t_scale<kIllum == dvo::kIllumBias>(
-          res, npx, mu, lam, P.dof, P.unroll, P.normalize_scale, count_safe, red);
+    // Weighted normal equations over the band.
+    double acc_part[dvo::kSums<kIllum>];
+#pragma unroll
+    for (int k = 0; k < dvo::kSums<kIllum>; ++k) acc_part[k] = 0.0;
+    for (int base = threadIdx.x; base < n; base += 2 * dvo::kThreads) {
+      float R[2], J[2][6], G2[2];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int p = base + k * dvo::kThreads;
+        R[k] = p < n ? res[p] : nanf("");
+        if (isnan(R[k])) continue;
+#pragma unroll
+        for (int c = 0; c < 6; ++c) J[k][c] = ld(jac + c * jst + p);
+        G2[k] = kAffine ? ld(gray + p) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (isnan(R[k])) continue;
+        float r = R[k];
+        if constexpr (kCentre) r = r - mu;
+        const float w = P.use_tweights ? dvo::t_weight(r * r, lam, P.dof) : 1.0f;
+        dvo::accumulate_system<kIllum, double>(acc_part, r, w, J[k], G2[k] - tpl_mu);
+      }
+    }
     float acc[dvo::kSums<kIllum>];
-    dvo::reduce_system<kIllum>(res, jac, gray, tpl_mu, npx, mu, P.use_tweights,
-                               lam, P.dof, acc, red);
+    cluster_sum(acc_part, acc, sh, phase, cl, nrank);
 
-    if (threadIdx.x == 0) {
+    if (rank == 0 && threadIdx.x == 0) {
       float h21[21], rhs[6];
       for (int k = 0; k < 21; ++k) h21[k] = acc[k];
       for (int k = 0; k < 6; ++k) rhs[k] = -acc[21 + k];
@@ -341,12 +561,24 @@ __global__ void __launch_bounds__(dvo::kThreads) level_kernel(LevelParams P) {
         for (int k = 0; k < 6; ++k) rhs[k] = rhs[k] + g[k] * rho / s_safe;
         err = err - rho * rho / s_safe / count_safe;
       }
-      lm_step(st, P, rel, h21, rhs, err, count, lam);
+      lm_step(sh.st, P, rel, h21, rhs, err, count, lam);
+    }
+    // Publish: every rank copies rank 0's state.  Rank 0 writes it again
+    // only after the next iteration's first cluster barrier, which every
+    // rank reaches after this copy.
+    cl.sync();
+    constexpr int kPubWords = sizeof(Published) / 4;
+    if (threadIdx.x < kPubWords) {
+      const int* src = reinterpret_cast<const int*>(cl.map_shared_rank(&sh.st.pub, 0));
+      reinterpret_cast<int*>(&sh.view)[threadIdx.x] = src[threadIdx.x];
     }
     __syncthreads();
   }
+  // Rank 0's shared memory stays until every rank has read it.
+  cl.sync();
 
-  if (threadIdx.x == 0) {
+  if (rank == 0 && threadIdx.x == 0) {
+    const LmState& st = sh.st;
     float* o = P.out + (size_t)b * 48;
     for (int k = 0; k < 48; ++k) o[k] = 0.0f;
     for (int k = 0; k < 12; ++k) {
@@ -355,35 +587,91 @@ __global__ void __launch_bounds__(dvo::kThreads) level_kernel(LevelParams P) {
     }
     o[15] = 1.0f;
     o[31] = 1.0f;
-    o[32] = st.wlam;
+    o[32] = st.pub.wlam;
     o[33] = st.lm_lam;
     o[34] = st.err_acc >= FLT_MAX ? FLT_MAX : st.err_acc;
     o[35] = st.count_acc;
-    o[36] = (float)st.it;
+    o[36] = (float)st.pub.it;
   }
+}
+
+using KernelFn = void (*)(LevelParams);
+
+template <int kIllum, int S>
+KernelFn pick_residency(int resident) {
+  return resident ? level_kernel<kIllum, S, true> : level_kernel<kIllum, S, false>;
+}
+
+template <int kIllum>
+KernelFn pick_stride(int s, int resident) {
+  return s == 2 ? pick_residency<kIllum, 2>(resident) : pick_residency<kIllum, 1>(resident);
+}
+
+// illum: 0 none, 1 bias, 2 affine (dvo::kIllum*); s: 1 or 2.
+KernelFn pick(int illum, int s, int resident) {
+  if (illum == dvo::kIllumAffine) return pick_stride<dvo::kIllumAffine>(s, resident);
+  if (illum == dvo::kIllumBias) return pick_stride<dvo::kIllumBias>(s, resident);
+  return pick_stride<dvo::kIllumNone>(s, resident);
+}
+
+// The launch shape of `batch` clusters of `cluster` CTAs; attrs must
+// outlive cfg.
+cudaError_t configure(KernelFn kern, int batch, int cluster, int dynamic_bytes,
+                      cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                      cudaLaunchAttribute (&attrs)[1]) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dynamic_bytes);
+  if (e != cudaSuccess) return e;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(batch * cluster, 1, 1);
+  cfg.blockDim = dim3(dvo::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = dynamic_bytes;
+  cfg.stream = stream;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// How many clusters of this variant and shape the card holds at once
+// (cudaOccupancyMaxActiveClusters), in *out.
+extern "C" int dvo_level_max_active_clusters(int illum, int s, int resident, int cluster,
+                                             int dynamic_bytes, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[1];
+  const KernelFn kern = pick(illum, s, resident);
+  cudaError_t e = configure(kern, 1, cluster, dynamic_bytes, nullptr, cfg, attrs);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(out, kern, &cfg);
+  return static_cast<int>(e);
+}
+
 extern "C" int dvo_level_solver(
     const float* planes, const float* points, const float* gray,
-    const float* jac, const float* scal, float* out, float* scratch,
+    const float* jac, const float* scal, float* out,
     int batch, int s, int ph, int pw, int hp, int wp, int in_cols,
     int radius, int image_h, int image_w, float dof, int unroll,
     int use_tweights, int normalize_scale, int illum, float tolerance,
     float lm_lambda0, float lm_up, float lm_down, float lm_lambda_max,
-    int max_iterations, void* stream) {
-  LevelParams P{planes, points, gray, jac, scal, out, scratch,
-                s, ph, pw, hp, wp, in_cols, radius, image_h, image_w,
-                unroll, max_iterations, use_tweights, normalize_scale,
+    int max_iterations, int cluster, int resident, int band_stride,
+    int dynamic_bytes, void* stream) {
+  LevelParams P{planes, points, gray, jac, scal, out,
+                ph, pw, hp, wp, in_cols, radius, image_h, image_w,
+                unroll, max_iterations, use_tweights, normalize_scale, band_stride,
                 dof, tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // illum: 0 none, 1 bias, 2 affine (dvo::kIllum*).
-  if (illum == dvo::kIllumAffine)
-    level_kernel<dvo::kIllumAffine><<<batch, dvo::kThreads, 0, st>>>(P);
-  else if (illum == dvo::kIllumBias)
-    level_kernel<dvo::kIllumBias><<<batch, dvo::kThreads, 0, st>>>(P);
-  else
-    level_kernel<dvo::kIllumNone><<<batch, dvo::kThreads, 0, st>>>(P);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[1];
+  const KernelFn kern = pick(illum, s, resident);
+  cudaError_t e = configure(kern, batch, cluster, dynamic_bytes,
+                            static_cast<cudaStream_t>(stream), cfg, attrs);
+  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, kern, P);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  return static_cast<int>(e);
 }

@@ -4,9 +4,10 @@ Counterpart of ``dense_visual_odometry_tpu/ops/pallas/level_solver.py``
 (``_level_kernel`` :268, ``lm_level_pallas`` :794, ``solve_level_fused``
 :928) for a single frozen-window centre per element.  :func:`lm_level` takes
 the Pallas call's argument layout: on CUDA tensors it launches
-``csrc/level_solver.cu`` (one block per batch element runs the whole LM
-loop); on CPU tensors it runs :func:`lm_level_plain`, the same function in
-plain PyTorch.  Any other device raises.
+``csrc/level_solver.cu`` (each batch element runs the whole LM loop on a
+cluster of CTAs, each CTA on a band of template rows; :func:`level_geometry`
+sizes it); on CPU tensors it runs :func:`lm_level_plain`, the same function
+in plain PyTorch.  Any other device raises.
 
 Per element the loop evaluates the trial pose (warp of NaN-poisoned
 template points, ball / in-bounds / in-front masks, tent taps of the frozen
@@ -23,7 +24,8 @@ iteration count is the batch maximum.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,6 +40,14 @@ _SMALL_ANGLE_SQ = 1e-4
 _DIAG = (0, 6, 11, 15, 18, 20)  # diagonal of the packed upper triangle
 _PAIRS = [(i, j) for i in range(6) for j in range(i, 6)]
 _UPPER = {p: k for k, p in enumerate(_PAIRS)}
+
+# Launch geometry (csrc/level_solver.cu).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # 16 is Hopper's largest (non-portable) cluster
+THREADS = 512                     # dvo::kThreads, threads of one CTA
+SHARED_LIMIT = 232_448            # shared bytes one block may use on sm_90
+STATIC_SHARED_BYTES = 8_192       # kStaticSharedBytes, the kernel's static part
+RESIDENT_PLANES = 11              # residual, points 3, template, Jacobian 6
+ILLUM_NONE, ILLUM_BIAS, ILLUM_AFFINE = 0, 1, 2
 
 
 # ---------------------------------------------------------------------------
@@ -148,33 +158,42 @@ def chol_solve6(h21, rhs):
 # ---------------------------------------------------------------------------
 
 
+def level_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over a level's pixels (the last two dimensions), added in
+    float64 and rounded once to float32, as the kernel adds them: the
+    total does not depend on the order of the sum, so the kernel, this
+    version on the card and this version on the CPU agree bit for bit
+    (``csrc/level_solver.cu``)."""
+    return x.sum(dim=(-2, -1), dtype=torch.float64).to(torch.float32)
+
+
 def _reduce(res, valid, gray, jac, lam, dof, unroll, use_tweights,
-            normalize_scale, illum_bias, illum_affine):
+            normalize_scale, illum_bias, illum_affine, total=level_sum):
     """Illumination pre-fit, t-scale and the weighted sums of one evaluation.
 
     res (B, hp, wp) already zero where invalid.  -> (h21, rhs, err, count,
     lam) with the bias or affine Schur applied, as in ``_level_kernel``'s
-    evaluate.
+    evaluate.  ``total`` takes every sum over the pixels.
     """
     validf = valid.to(torch.float32)
-    count = validf.sum(dim=(-2, -1))
+    count = total(validf)
     count_safe = torch.clamp(count, min=1.0)
     zero = torch.zeros_like(res)
     if illum_bias or illum_affine:
-        mu0 = res.sum(dim=(-2, -1)) / count_safe
+        mu0 = total(res) / count_safe
         res = torch.where(valid, res - mu0[:, None, None], zero)
     if illum_affine:
-        tpl_mu = torch.where(valid, gray, zero).sum(dim=(-2, -1)) / count_safe
+        tpl_mu = total(torch.where(valid, gray, zero)) / count_safe
         tpl_c = torch.where(valid, gray - tpl_mu[:, None, None], zero)
-        alpha = (tpl_c * res).sum(dim=(-2, -1)) / torch.clamp(
-            (tpl_c * tpl_c).sum(dim=(-2, -1)), min=1e-6
+        alpha = total(tpl_c * res) / torch.clamp(
+            total(tpl_c * tpl_c), min=1e-6
         )
         res = torch.where(valid, res - alpha[:, None, None] * tpl_c, zero)
     rsq = res * res
     if use_tweights:
         for _ in range(unroll):
             w_est = (dof + 1.0) / (dof + rsq * lam[:, None, None])
-            sigma_sq = (validf * rsq * w_est).sum(dim=(-2, -1))
+            sigma_sq = total(validf * rsq * w_est)
             if normalize_scale:
                 sigma_sq = sigma_sq / count_safe
             lam = 1.0 / torch.clamp(sigma_sq, min=1e-20)
@@ -182,18 +201,18 @@ def _reduce(res, valid, gray, jac, lam, dof, unroll, use_tweights,
     else:
         weights = validf
     jw = [jac[:, i] * weights for i in range(6)]
-    h21 = tuple((jw[i] * jac[:, j]).sum(dim=(-2, -1)) for i, j in _PAIRS)
-    rhs = tuple(-(jw[i] * res).sum(dim=(-2, -1)) for i in range(6))
-    err = (weights * rsq).sum(dim=(-2, -1)) / count_safe
+    h21 = tuple(total(jw[i] * jac[:, j]) for i, j in _PAIRS)
+    rhs = tuple(-total(jw[i] * res) for i in range(6))
+    err = total(weights * rsq) / count_safe
     if illum_affine:
-        s_ii = (weights * tpl_c * tpl_c).sum(dim=(-2, -1))
-        s_i1 = (weights * tpl_c).sum(dim=(-2, -1))
-        s_11 = weights.sum(dim=(-2, -1))
-        t_i = (weights * tpl_c * res).sum(dim=(-2, -1))
-        t_1 = (weights * res).sum(dim=(-2, -1))
+        s_ii = total(weights * tpl_c * tpl_c)
+        s_i1 = total(weights * tpl_c)
+        s_11 = total(weights)
+        t_i = total(weights * tpl_c * res)
+        t_1 = total(weights * res)
         det = torch.clamp(s_ii * s_11 - s_i1 * s_i1, min=1e-6)
-        g_i = tuple((jw[k] * tpl_c).sum(dim=(-2, -1)) for k in range(6))
-        g_1 = tuple(jw[k].sum(dim=(-2, -1)) for k in range(6))
+        g_i = tuple(total(jw[k] * tpl_c) for k in range(6))
+        g_1 = tuple(total(jw[k]) for k in range(6))
         beta_i = (s_11 * t_i - s_i1 * t_1) / det
         beta_1 = (s_ii * t_1 - s_i1 * t_i) / det
         m_i = tuple((s_11 * g_i[k] - s_i1 * g_1[k]) / det for k in range(6))
@@ -204,9 +223,9 @@ def _reduce(res, valid, gray, jac, lam, dof, unroll, use_tweights,
         rhs = tuple(r + g_i[k] * beta_i + g_1[k] * beta_1 for k, r in enumerate(rhs))
         err = err - (t_i * beta_i + t_1 * beta_1) / count_safe
     elif illum_bias:
-        s_safe = torch.clamp(weights.sum(dim=(-2, -1)), min=1e-6)
-        rho = (weights * res).sum(dim=(-2, -1))
-        g6 = tuple(jw[i].sum(dim=(-2, -1)) for i in range(6))
+        s_safe = torch.clamp(total(weights), min=1e-6)
+        rho = total(weights * res)
+        g6 = tuple(total(jw[i]) for i in range(6))
         h21 = tuple(h - g6[i] * g6[j] / s_safe for (i, j), h in zip(_PAIRS, h21))
         rhs = tuple(r + g6[i] * rho / s_safe for i, r in enumerate(rhs))
         err = err - rho * rho / s_safe / count_safe
@@ -377,30 +396,158 @@ def _check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radi
             raise ValueError(f"{name} must be contiguous")
 
 
+@dataclasses.dataclass(frozen=True)
+class LevelGeometry:
+    """How one launch spreads a level over the card: each batch element on
+    a cluster of ``cluster`` CTAs, CTA rank k on the template rows
+    ``band_rows(hp, cluster)[k]``."""
+
+    cluster: int
+    band_pixels: int  # pixels of the largest band
+    band_stride: int  # floats per band plane in shared memory (16-byte multiple)
+    resident: bool  # inputs copied into shared memory once per launch
+    shared_bytes: int  # static allowance + dynamic shared bytes of one CTA
+    max_active_clusters: Optional[int]  # clusters the card holds at once; None: not asked
+
+    @property
+    def dynamic_bytes(self) -> int:
+        return self.shared_bytes - STATIC_SHARED_BYTES
+
+
+def band_rows(hp: int, cluster: int) -> List[Tuple[int, int]]:
+    """Template rows [r0, r1) of each CTA rank, as the kernel splits them."""
+    return [(k * hp // cluster, (k + 1) * hp // cluster) for k in range(cluster)]
+
+
+def _layout(hp: int, wp: int, cluster: int):
+    """(band pixels, band stride, resident, shared bytes) of a cluster size,
+    or None where even the band's residuals do not fit in shared memory."""
+    band = max(r1 - r0 for r0, r1 in band_rows(hp, cluster)) * wp
+    stride = -(-band // 4) * 4
+    for resident, planes in ((True, RESIDENT_PLANES), (False, 1)):
+        shared = STATIC_SHARED_BYTES + 4 * planes * stride
+        if shared <= SHARED_LIMIT:
+            return band, stride, resident, shared
+    return None
+
+
+def level_geometry(
+    batch: int,
+    hp: int,
+    wp: int,
+    sm_count: int,
+    max_active_clusters: Optional[Callable[[int, bool, int], int]] = None,
+) -> LevelGeometry:
+    """The launch geometry of a level of B = ``batch`` elements on an
+    ``hp`` x ``wp`` template grid, on a card of ``sm_count`` SMs.
+
+    The cluster size C is the largest of :data:`CLUSTER_SIZES` that
+    1. gives every CTA at least one template row and fits the band's
+       residuals in shared memory (with the inputs too where they fit:
+       ``resident``);
+    2. keeps B * C within the card's SMs and at least one pixel per thread
+       in a CTA, unless it is the smallest size that passes 1;
+    3. the card schedules: ``max_active_clusters(C, resident,
+       dynamic_bytes)`` (``cudaOccupancyMaxActiveClusters``) is at least 1.
+       Without the callable (CPU), every size passing 2 counts as
+       scheduled.
+    A batch of more clusters than the card holds at once runs in waves:
+    on an H100 (7 clusters of 16 at once) B=8 at 640x480's level 0 runs
+    faster on 16-CTA clusters with resident inputs, in two waves, than on
+    8-CTA clusters that stream them (PERF.md).  Raises if no size passes
+    1, or the card schedules none.
+    """
+    layouts = {c: _layout(hp, wp, c) for c in CLUSTER_SIZES if c <= hp}
+    fitting = [c for c, lay in layouts.items() if lay is not None]
+    if not fitting:
+        raise ValueError(
+            f"a {hp}x{wp} level's residual band does not fit in {SHARED_LIMIT} "
+            f"bytes of shared memory at any cluster size"
+        )
+    wanted = [
+        c for c in fitting
+        if c == fitting[0] or (batch * c <= sm_count and hp * wp >= c * THREADS)
+    ]
+    for c in reversed(wanted):
+        band, stride, resident, shared = layouts[c]
+        active = None
+        if max_active_clusters is not None:
+            active = max_active_clusters(c, resident, shared - STATIC_SHARED_BYTES)
+        if active is None or active >= 1:
+            return LevelGeometry(c, band, stride, resident, shared, active)
+    raise RuntimeError(f"the card schedules no cluster of sizes {wanted} for a {hp}x{wp} level")
+
+
+def _illum_code(illum_bias: bool, illum_affine: bool) -> int:
+    return ILLUM_AFFINE if illum_affine else ILLUM_BIAS if illum_bias else ILLUM_NONE
+
+
+_active_clusters: Dict[tuple, int] = {}
+_geometries: Dict[tuple, LevelGeometry] = {}
+
+
+def _max_active_clusters(device: torch.device, illum: int, grid_stride: int,
+                         cluster: int, resident: bool, dynamic_bytes: int) -> int:
+    """cudaOccupancyMaxActiveClusters of one kernel variant and shape,
+    asked once per process."""
+    key = (device.index, illum, grid_stride, cluster, resident, dynamic_bytes)
+    if key not in _active_clusters:
+        fn = build.load("level_solver").dvo_level_max_active_clusters
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        count = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            status = fn(illum, grid_stride, int(resident), cluster, dynamic_bytes,
+                        ctypes.byref(count))
+        build.check(status, "level_solver occupancy query")
+        _active_clusters[key] = count.value
+    return _active_clusters[key]
+
+
+def launch_geometry(points: torch.Tensor, grid_stride: int, illum_bias: bool = False,
+                    illum_affine: bool = False) -> LevelGeometry:
+    """The geometry :func:`lm_level` launches with for these CUDA inputs."""
+    b, _, hp, wp = points.shape
+    dev = points.device
+    illum = _illum_code(illum_bias, illum_affine)
+    key = (dev.index, b, hp, wp, grid_stride, illum)
+    if key not in _geometries:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _geometries[key] = level_geometry(
+            b, hp, wp, sms,
+            lambda c, resident, dyn: _max_active_clusters(dev, illum, grid_stride, c, resident, dyn),
+        )
+    return _geometries[key]
+
+
 def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
             image_h, image_w, dof, unroll, use_tweights, normalize_scale,
             tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
-            max_iterations, illum_bias, illum_affine) -> torch.Tensor:
+            max_iterations, illum_bias, illum_affine,
+            geometry: Optional[LevelGeometry] = None) -> torch.Tensor:
+    """Launch the kernel, at ``geometry`` or at :func:`launch_geometry`'s."""
+    if geometry is None:
+        geometry = launch_geometry(points, grid_stride, illum_bias, illum_affine)
     lib = build.load("level_solver")
     fn = lib.dvo_level_solver
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     b, _, hp, wp = points.shape
     ph, pw = planes.shape[-2], planes.shape[-1]
     out = torch.empty((b, OUT_COLS), dtype=torch.float32, device=points.device)
-    scratch = torch.empty((b, hp * wp), dtype=torch.float32, device=points.device)
     stream = torch.cuda.current_stream(points.device).cuda_stream
     status = fn(
         planes.data_ptr(), points.data_ptr(), gray_prev.data_ptr(),
-        jac_planes.data_ptr(), scal.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        jac_planes.data_ptr(), scal.data_ptr(), out.data_ptr(),
         b, grid_stride, ph, pw, hp, wp, IN_COLS, radius, image_h, image_w,
         dof, unroll, int(use_tweights), int(normalize_scale),
-        2 if illum_affine else int(illum_bias), tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max, max_iterations,
-        stream,
+        _illum_code(illum_bias, illum_affine), tolerance, lm_lambda0, lm_up, lm_down,
+        lm_lambda_max, max_iterations, geometry.cluster, int(geometry.resident),
+        geometry.band_stride, geometry.dynamic_bytes, stream,
     )
     build.check(status, "level_solver")
     lm_level.launches += 1

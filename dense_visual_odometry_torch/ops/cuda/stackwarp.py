@@ -4,7 +4,8 @@ Counterpart of ``dense_visual_odometry_tpu/ops/pallas/stackwarp.py``
 (``_stack_kernel`` :38, ``stack_accumulate_pallas`` :85,
 ``shift_stack_sample_pallas`` :735).  :func:`stack_accumulate` takes the
 Pallas call's argument layout: on CUDA tensors it launches
-``csrc/stackwarp.cu`` (one thread per output pixel); on CPU tensors it runs
+``csrc/stackwarp.cu`` (a thread per output pixel on a 3-D grid of
+32 x 8-pixel blocks, no index division); on CPU tensors it runs
 the plain version, :func:`~dense_visual_odometry_torch.ops.shiftwarp.tent_sample`,
 which the kernel's ``dvo::tent_sample`` follows tap for tap.  Any other
 device raises.
@@ -54,6 +55,10 @@ def _launch(planes, du, dv, radius, grid_stride) -> torch.Tensor:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     b, hp, wp = du.shape
     ph, pw = planes.shape[-2], planes.shape[-1]
+    # The kernel indexes in 32 bits and puts the batch on the grid's z.
+    if max(planes.numel(), du.numel()) >= 2**31 or b > 65535:
+        raise ValueError(f"stack_accumulate: batch {b} of {tuple(planes.shape[1:])} "
+                         f"planes exceeds the kernel's 32-bit indexing")
     out = torch.empty((b, hp, wp), dtype=torch.float32, device=du.device)
     stream = torch.cuda.current_stream(du.device).cuda_stream
     status = fn(

@@ -4,6 +4,7 @@
 Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 
     python3 profile_port.py [CONFIG ...]
+    python3 profile_port.py --kernels
 
 CONFIG is ``tpu_fast`` (the default), ``tpu_parity`` or one of
 ``chip_smoke.VARIANTS`` (``parity_affine``, ``parity_esm``).  Builds the
@@ -15,23 +16,50 @@ pairs that the configuration's hard-motion trigger passes at every level
 Prints one JSON line per run: wall time, device kernel time and its share
 of the wall time, the kernels that took the most device time, and the
 device time and launches of each of the port's own kernels.
+
+``--kernels`` instead times the level and stack kernels on the inputs of
+``chip_smoke.py``'s kernel checks (levels 0 and 3, B=1, 8 and 64, every
+illumination variant and stopping rule; ``F.grid_sample`` beside the stack
+kernel) with its yardstick ``chip_smoke.time_ms``, one JSON line each, and
+says how far each level-kernel run is from the plain version
+(``chip_smoke.level_agrees``).  The inputs come from the ``chip_smoke.py``
+beside this script and the kernels from whichever package is imported, so
+another checkout's kernels (say, the parent commit unpacked under
+``out/parent``) are timed on the same inputs by running this script
+without its own directory on the path:
+
+    PYTHONPATH=out/parent python3 -P profile_port.py --kernels
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-import chip_smoke as cs
 from dense_visual_odometry_torch.models.session import OdometrySession
 from dense_visual_odometry_torch.ops.cuda import build
 from dense_visual_odometry_torch.parallel import batched_track_pair, stack_frame_data
+
+
+def _load_smoke():
+    """The ``chip_smoke.py`` beside this script, on the imported package."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().with_name("chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+cs = _load_smoke()
 
 # Device-side names of the port's kernels (ops/cuda/csrc/).
 OWN_KERNELS = ("level_kernel", "fused_kernel", "stack_kernel")
@@ -68,6 +96,34 @@ def breakdown(name: str, fn, top: int = 8) -> dict:
     }
 
 
+def kernel_times(frames, poses, cam, dev) -> None:
+    """``--kernels``: the level and stack kernels' times, one line each."""
+    for batch in cs.KERNEL_BATCHES:
+        prev, curr, gt = cs.kernel_batch(frames, poses, dev, batch)
+        for level in (0, cs.LEVELS - 1):
+            for illum in (None, "bias", "affine"):
+                for rel in (0.01, None):
+                    args, kwargs = cs.level_case(prev, curr, gt, cam, dev, level, illum, rel)
+                    out_k = cs.lm_level(*args, **kwargs)
+                    ok, errs, differing = cs.level_agrees(
+                        out_k, cs.lm_level_plain(*args, **kwargs))
+                    ms = cs.time_ms(lambda: cs.lm_level(*args, **kwargs), 10, dev)
+                    print(json.dumps({
+                        "kernel": "level_solver", "batch": batch, "level": level,
+                        "illumination": illum, "rel": rel,
+                        "iterations": int(out_k[:, 36].max()), "ms": ms,
+                        "agrees_with_plain": ok, "elements_differing": differing,
+                        **{f"{k}_max_abs": errs[k]["max_abs"]
+                           for k in ("est", "count", "iterations")},
+                    }), flush=True)
+            args, _, library = cs.stack_case(prev, curr, gt, cam, dev, level)
+            print(json.dumps({
+                "kernel": "stackwarp", "batch": batch, "level": level,
+                "ms": cs.time_ms(lambda: cs.stack_accumulate(*args), 20, dev),
+                "library_ms": cs.time_ms(library, 20, dev),
+            }), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA GPU", file=sys.stderr)
@@ -84,9 +140,14 @@ def main() -> int:
         cs.robust.preprocess_frame(g, d, cam, levels=cs.LEVELS, device=dev)
         for g, d in zip(grays, depths)
     ]
+    package = Path(build.__file__).resolve().parents[3]
+    print(json.dumps({"card": smi, "torch": torch.__version__, "package": str(package)}),
+          flush=True)
+    if sys.argv[1:] == ["--kernels"]:
+        kernel_times(frames, poses, cam, dev)
+        return 0
     k_dev = cam.intrinsics.to(dev)
     pairs = [(i, i + 1) for i in range(cs.N_FRAMES - 1)]
-    print(json.dumps({"card": smi, "torch": torch.__version__}), flush=True)
     for config in sys.argv[1:] or ["tpu_fast"]:
         if config in cs.VARIANTS:
             cfg = cs.variant_config(config)

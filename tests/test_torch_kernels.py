@@ -18,7 +18,8 @@ where XLA's fused multiply-adds and PyTorch's separate roundings may fall
 on opposite sides.
 
 The CUDA kernels themselves have no CPU version; ``test_cuda_kernels_match_plain``
-holds them against the plain versions on a GPU and skips without one.
+(at B=1, 2 and 64) and ``test_cuda_level_kernel_every_geometry`` hold them
+against the plain versions on a GPU and skip without one.
 """
 
 import dataclasses
@@ -50,8 +51,9 @@ CFG = RobustDVOConfig(
 )
 
 
-def _frozen(stride: int, device="cpu"):
-    """Level inputs for B=2 pairs of a seeded scene, frozen at a start pose."""
+def _frozen(stride: int, device="cpu", batch=2):
+    """Level inputs for B pairs of a seeded scene (two pairs, repeated),
+    frozen at a start pose."""
     h, w = GRID_H * stride, GRID_W * stride
     gray, depth, k = synthetic.textured_scene(h, w, seed=3)
     poses = synthetic.handheld_trajectory(3, seed=4, t_step=0.02, r_step=0.01)
@@ -61,7 +63,7 @@ def _frozen(stride: int, device="cpu"):
         robust.preprocess_frame(g, d, cam, levels=1, device=device)
         for g, d in zip(grays, depths)
     ]
-    pairs = [(0, 1), (2, 1)]
+    pairs = ([(0, 1), (2, 1)] * batch)[:batch]
     prev_g = torch.stack([frames[i].gray[0] for i, _ in pairs])
     prev_d = torch.stack([frames[i].depth_m[0] for i, _ in pairs])
     curr_g = torch.stack([frames[j].gray[0] for _, j in pairs])
@@ -70,7 +72,7 @@ def _frozen(stride: int, device="cpu"):
         dtype=torch.float32, device=device,
     )
     rng = np.random.default_rng(stride)
-    xi = torch.as_tensor(rng.normal(0, 4e-3, (2, 6)), dtype=torch.float32, device=device)
+    xi = torch.as_tensor(rng.normal(0, 4e-3, (batch, 6)), dtype=torch.float32, device=device)
     est0 = se3.exp(xi) @ gt
     cfg = dataclasses.replace(CFG, grid_strides=(stride,))
     k_t = cam.at(0).to(device)
@@ -199,14 +201,15 @@ def test_wrappers_check_inputs():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2, 64], ids=["b1", "b2", "b64"])
 @pytest.mark.parametrize("illum", [None, "bias", "affine"], ids=["no_illum", "bias", "affine"])
 @pytest.mark.parametrize("stride", [1, 2], ids=["s1", "s2"])
-def test_cuda_kernels_match_plain(stride, illum):
+def test_cuda_kernels_match_plain(stride, illum, batch):
     """Each CUDA kernel against its plain version on the card, same inputs
     (the fused kernel has no affine variant: bias there)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU build")
-    cfg, fl, k, est0, image_hw = _frozen(stride, device="cuda")
+    cfg, fl, k, est0, image_hw = _frozen(stride, device="cuda", batch=batch)
     b = est0.shape[0]
     wlam0 = torch.full((b,), 0.04, device="cuda")
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0,
@@ -241,3 +244,32 @@ def test_cuda_kernels_match_plain(stride, illum):
     sp = tent_sample(fl.planes, du, dv, cfg.shift_stack_radius, stride)
     m = valid.cpu().numpy() > 0
     np.testing.assert_allclose(sk.cpu().numpy()[m], sp.cpu().numpy()[m], rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("illum", [None, "bias", "affine"], ids=["no_illum", "bias", "affine"])
+@pytest.mark.parametrize("stride", [1, 2], ids=["s1", "s2"])
+def test_cuda_level_kernel_every_geometry(stride, illum):
+    """The level kernel at every cluster size, with resident and streamed
+    inputs, against the plain version on the card: transforms 1e-5,
+    iterations and valid counts identical, err and lambda 1e-3 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU build")
+    cfg, fl, k, est0, image_hw = _frozen(stride, device="cuda", batch=3)
+    b, hp, wp = fl.gray_prev.shape
+    wlam0 = torch.full((b,), 0.04, device="cuda")
+    points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0,
+                                       torch.full((b,), 0.01, device="cuda"), stride)
+    kw = _kernel_kwargs(cfg, stride, image_hw, illum)
+    args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
+    out_p = tlevel.lm_level_plain(*args, **kw).cpu()
+    for cluster in (c for c in tlevel.CLUSTER_SIZES if c <= hp):
+        band, stride_f, _, _ = tlevel._layout(hp, wp, cluster)
+        for resident in (True, False):
+            planes_n = tlevel.RESIDENT_PLANES if resident else 1
+            geo = tlevel.LevelGeometry(cluster, band, stride_f, resident,
+                                       tlevel.STATIC_SHARED_BYTES + 4 * planes_n * stride_f, None)
+            out_k = tlevel._launch(*args, **kw, geometry=geo).cpu()
+            np.testing.assert_array_equal(out_k[:, 35:37], out_p[:, 35:37])
+            np.testing.assert_allclose(out_k[:, :32], out_p[:, :32], atol=1e-5)
+            np.testing.assert_allclose(out_k[:, 32:35], out_p[:, 32:35], rtol=1e-3)
