@@ -18,12 +18,15 @@ Phases, each printing one JSON line:
    bias and with affine gain + bias, under both stopping rules, each with
    the launch geometry it chose (cluster size, pixels per CTA, shared bytes,
    resident or streamed inputs, the clusters the card holds at once); the
+   fused kernel at level 0 for the same batch sizes, without illumination
+   and with the bias, on the level kernel's inputs, with its geometry; the
    stack kernel at levels 0 and 3 for the same batch sizes; at B=8 and 64
-   the level kernel also at every cluster size and input residency that
-   fits, timed; at B=8 the fused kernel.  Kernel times, plain times (the
-   plain level solver only up to B=8: at B=64 it is compared, not timed)
-   and for the stack kernel the time of ``F.grid_sample`` on the same
-   samples;
+   the level kernel (levels 0 and 3) and the fused kernel (level 0) also at
+   every cluster size and input residency that fits, timed.  The level and
+   fused kernels run each case twice and must repeat bit for bit.  Kernel times,
+   plain times (the plain level solver only up to B=8: at B=64 it is
+   compared, not timed) and for the stack kernel the time of
+   ``F.grid_sample`` on the same samples;
 4. main path: ``batched_track_pair`` at B=64 on ``configs/tpu_fast.json``,
    ``configs/tpu_parity.json`` and the parity tier with affine illumination
    (``parity_affine``) and with ESM gradients (``parity_esm``), each over all
@@ -56,12 +59,7 @@ from dense_visual_odometry_torch.config import RobustDVOConfig
 from dense_visual_odometry_torch.io import synthetic
 from dense_visual_odometry_torch.models import robust
 from dense_visual_odometry_torch.models.session import OdometrySession
-from dense_visual_odometry_torch.ops.cuda import build
-from dense_visual_odometry_torch.ops.cuda.fused_iter import (
-    fused_iteration,
-    fused_iteration_plain,
-)
-from dense_visual_odometry_torch.ops.cuda import level_solver
+from dense_visual_odometry_torch.ops.cuda import build, fused_iter, level_solver
 from dense_visual_odometry_torch.ops.cuda.level_solver import (
     level_inputs,
     lm_level,
@@ -77,9 +75,10 @@ CONFIGS = ROOT / "configs"
 HEIGHT, WIDTH, LEVELS = 480, 640, 4
 N_FRAMES = 16
 KERNEL_BATCHES = (1, 8, 64)
-FUSED_BATCH = 8
+SWEEP_BATCHES = (8, 64)  # batch sizes of the timed geometry sweeps
+SUMMARY_BATCH = 8  # the batch size of the kernel summary line
 PLAIN_TIMED_MAX_BATCH = 8
-STRICT_MAX_BATCH = 8  # see level_agrees
+STRICT_MAX_BATCH = 8  # see level_agrees and fused_agrees
 MAIN_BATCH = 64
 SEED = 0
 
@@ -99,10 +98,10 @@ OPS_WARP = 40
 OPS_VALID = 120
 OPS_STACK = 56
 
-# Kernel against plain version: same inputs, same arithmetic; the fused
-# kernel's block-wide sums run in another order, the level kernel's sums are
-# float64 on both sides (level_agrees).  Poses in metres / rotation entries;
-# sums relative to the largest magnitude of their field.  The stack kernel
+# Kernel against plain version: same inputs, same arithmetic; the level and
+# fused kernels' sums are float64 on both sides (level_agrees,
+# fused_agrees).  Poses in metres / rotation entries; sums relative to the
+# largest magnitude of their field.  The stack kernel
 # sums no block: its samples on the valid pixels relative to the largest
 # sample.
 TOLERANCES = {"pose_atol": 1e-4, "sum_rtol": 1e-4, "scale_rtol": 1e-3,
@@ -255,9 +254,8 @@ LEVEL_FIELDS = {
     "iterations": slice(36, 37),
 }
 FUSED_FIELDS = {
-    "H": slice(0, 36), "b": slice(36, 42), "err_sum": slice(42, 43),
-    "count": slice(43, 44), "lam": slice(44, 45), "bias_s": slice(45, 46),
-    "bias_rho": slice(46, 47), "bias_g": slice(47, 53),
+    "H": slice(0, 36), "rhs": slice(36, 42), "err": slice(42, 43),
+    "count": slice(43, 44), "lam": slice(44, 45),
 }
 
 
@@ -315,6 +313,12 @@ def level_case(prev, curr, gt, cam, dev, level, illum, rel):
     return (fl.planes, points, fl.gray_prev, fl.jac_planes, scal), kwargs
 
 
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two float32 results are the same bit for bit: a kernel run
+    twice on the same inputs must repeat (fixed summation order)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def level_agrees(out_k, out_p):
     """-> (ok, field errors, elements whose valid count or iterations
     differ) of level-kernel rows against plain rows.
@@ -357,27 +361,18 @@ def check_level_geometries(prev, curr, gt, cam, dev, level):
     hp, wp = args[1].shape[-2:]
     out_p = lm_level_plain(*args, **kwargs)
     runs = []
-    for cluster in level_solver.CLUSTER_SIZES:
-        layout = level_solver._layout(hp, wp, cluster) if cluster <= hp else None
-        if layout is None:
-            continue
-        band, stride, resident, _ = layout
-        for res in sorted({resident, False}, reverse=True):
-            planes = level_solver.RESIDENT_PLANES if res else 1
-            geo = level_solver.LevelGeometry(
-                cluster, band, stride, res,
-                level_solver.STATIC_SHARED_BYTES + 4 * planes * stride, None)
-            out_k = level_solver._launch(*args, **kwargs, geometry=geo)
-            torch.cuda.synchronize()
-            ok, errs, differing = level_agrees(out_k, out_p)
-            ms = time_ms(lambda: level_solver._launch(*args, **kwargs, geometry=geo), 5, dev)
-            runs.append({"cluster": cluster, "inputs": "resident" if res else "streamed",
-                         "ok": ok, "ms": ms, "elements_differing": differing,
-                         "est_max_abs": errs["est"]["max_abs"],
-                         "err_max_rel": errs["err"]["max_rel"],
-                         "wlam_max_rel": errs["wlam"]["max_rel"],
-                         "count_max_abs": errs["count"]["max_abs"],
-                         "iterations_max_abs": errs["iterations"]["max_abs"]})
+    for geo in level_solver.geometries(hp, wp, level_solver.LEVEL_KERNEL):
+        out_k = level_solver._launch(*args, **kwargs, geometry=geo)
+        torch.cuda.synchronize()
+        ok, errs, differing = level_agrees(out_k, out_p)
+        ms = time_ms(lambda: level_solver._launch(*args, **kwargs, geometry=geo), 5, dev)
+        runs.append({"cluster": geo.cluster, "inputs": "resident" if geo.resident else "streamed",
+                     "ok": ok, "ms": ms, "elements_differing": differing,
+                     "est_max_abs": errs["est"]["max_abs"],
+                     "err_max_rel": errs["err"]["max_rel"],
+                     "wlam_max_rel": errs["wlam"]["max_rel"],
+                     "count_max_abs": errs["count"]["max_abs"],
+                     "iterations_max_abs": errs["iterations"]["max_abs"]})
     return {"phase": "kernel", "kernel": "level_solver_geometries", "level": level,
             "batch": args[1].shape[0], "shape": [hp, wp], "illumination": "affine",
             "ok": all(r["ok"] for r in runs), "runs": runs}
@@ -389,9 +384,11 @@ def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel):
     b, s = points.shape[0], kwargs["grid_stride"]
     geo = level_solver.launch_geometry(points, s, kwargs["illum_bias"], kwargs["illum_affine"])
     out_k = lm_level(*args, **kwargs)
+    repeats = bit_equal(out_k, lm_level(*args, **kwargs))
     out_p = lm_level_plain(*args, **kwargs)
     torch.cuda.synchronize()
     ok, errs, differing = level_agrees(out_k, out_p)
+    ok = ok and repeats
     its_k = out_k[:, 36].cpu().numpy()
     its_p = out_p[:, 36].cpu().numpy()
     ms = time_ms(lambda: lm_level(*args, **kwargs), 10, dev)
@@ -410,56 +407,95 @@ def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel):
                      "shared_bytes": geo.shared_bytes,
                      "inputs": "resident" if geo.resident else "streamed",
                      "max_active_clusters": geo.max_active_clusters},
-        "ok": ok, "errors": errs, "elements_differing": differing,
+        "ok": ok, "repeats": repeats, "errors": errs, "elements_differing": differing,
         "iterations_kernel": its_k.tolist(), "iterations_plain": its_p.tolist(),
         "ms": ms, "plain_ms": plain_ms,
         "bytes": nbytes, "ops": ops, **bound(nbytes, ops),
     }
 
 
-def check_fused_kernel(prev, curr, gt, cam, dev, illum):
-    cfg = RobustDVOConfig.from_json(CONFIGS / "tpu_fast.json")
-    level = 0
-    s = cfg.stride_for_level(level)
-    k = cam.at(level).to(dev)
-    est = start_estimates(gt, level)
-    fl = robust.frozen_level(
-        prev.gray[level], prev.depth_m[level], curr.gray[level], k, est, cfg, level
-    )
-    image_h, image_w = curr.gray[level].shape[-2:]
-    du, dv, valid = residual_displacements(
-        fl.u0, fl.v0, fl.cu, fl.cv, cfg.shift_stack_radius, s, image_h, image_w
-    )
-    valid = (valid & fl.valid_geom0).to(torch.float32)
-    b = est.shape[0]
-    lam0 = torch.full((b, 1), 1.0 / cfg.weighter.initial_sigma**2, device=dev)
-    args = (fl.planes, du.contiguous(), dv.contiguous(), fl.gray_prev, valid,
-            fl.jac_planes, lam0)
-    kwargs = dict(
-        radius=cfg.shift_stack_radius, grid_stride=s, dof=cfg.weighter.dof,
-        unroll=cfg.weighter.unroll_iterations or 3, use_tweights=cfg.use_weighter,
-        normalize_scale=cfg.weighter.normalize_scale, illum_bias=illum == "bias",
-    )
-    out_k = fused_iteration(*args, **kwargs)
-    out_p = fused_iteration_plain(*args, **kwargs)
-    torch.cuda.synchronize()
+def fused_case(prev, curr, gt, cam, dev, illum):
+    """The fused kernel's inputs at level 0: the level kernel's
+    (``level_case``), whose level-start pose and lambda it evaluates; ->
+    (args, kwargs) of ``fused_evaluation``."""
+    args, kwargs = level_case(prev, curr, gt, cam, dev, 0, illum, None)
+    keep = ("radius", "grid_stride", "image_h", "image_w", "dof", "unroll", "use_tweights",
+            "normalize_scale", "illum_bias")
+    return args, {k: kwargs[k] for k in keep}
+
+
+def fused_agrees(out_k, out_p):
+    """-> (ok, field errors, elements that differ in any field) of
+    fused-kernel rows against plain rows.
+
+    The warp and the masks depend on the pose alone, so the valid counts
+    are always equal.  Up to B=8 (``STRICT_MAX_BATCH``) every field must be
+    equal bit for bit, as both sides add in float64 and round once.  At
+    B=64 the Hessian, rhs, error and lambda are held to ``sum_rtol`` of
+    their largest magnitude and the elements that part are counted (a
+    float64 total within its error of a float32 rounding boundary)."""
     errs = field_errors(out_k, out_p, FUSED_FIELDS)
-    ok = bool(torch.isfinite(out_k).all()) and errs["count"]["max_abs"] <= 0.0 and all(
-        e["max_rel"] <= TOLERANCES["sum_rtol"]
-        for name, e in errs.items()
-        if name != "count" and (illum == "bias" or not name.startswith("bias"))
-    )
-    ms = time_ms(lambda: fused_iteration(*args, **kwargs), 20, dev)
-    plain_ms = time_ms(lambda: fused_iteration_plain(*args, **kwargs), 5, dev)
-    npx = du.shape[-2] * du.shape[-1]
+    differing = int((out_k != out_p).any(dim=1).sum())
+    ok = bool(torch.isfinite(out_k).all()) and errs["count"]["max_abs"] == 0.0
+    if out_k.shape[0] <= STRICT_MAX_BATCH:
+        ok = ok and differing == 0
+    else:
+        ok = ok and all(errs[f]["max_rel"] <= TOLERANCES["sum_rtol"]
+                        for f in ("H", "rhs", "err", "lam"))
+    return ok, errs, differing
+
+
+def fused_geometry(points, kwargs):
+    return level_solver.launch_geometry(points, kwargs["grid_stride"], kwargs["illum_bias"],
+                                        kernel=fused_iter.FUSED_KERNEL)
+
+
+def check_fused_kernel(prev, curr, gt, cam, dev, illum):
+    args, kwargs = fused_case(prev, curr, gt, cam, dev, illum)
+    points = args[1]
+    b = points.shape[0]
+    geo = fused_geometry(points, kwargs)
+    out_k = fused_iter.fused_evaluation(*args, **kwargs)
+    repeats = bit_equal(out_k, fused_iter.fused_evaluation(*args, **kwargs))
+    out_p = fused_iter.fused_evaluation_plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    ok, errs, differing = fused_agrees(out_k, out_p)
+    ok = ok and repeats
+    ms = time_ms(lambda: fused_iter.fused_evaluation(*args, **kwargs), 20, dev)
+    plain_ms = time_ms(lambda: fused_iter.fused_evaluation_plain(*args, **kwargs), 3, dev)
+    npx = points.shape[-2] * points.shape[-1]
     nbytes = 4 * sum(t.numel() for t in args) + 4 * out_k.numel()
-    ops = float(b * npx + out_k[:, 43].double().sum() * OPS_VALID)
+    ops = float(b * npx * OPS_WARP + out_k[:, 43].double().sum() * OPS_VALID)
     return {
-        "phase": "kernel", "kernel": "fused_iter", "level": level, "grid_stride": s,
-        "shape": list(du.shape), "illumination": illum, "ok": ok, "errors": errs,
-        "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
-        **bound(nbytes, ops),
+        "phase": "kernel", "kernel": "fused_iter", "level": 0,
+        "grid_stride": kwargs["grid_stride"], "batch": b, "shape": list(args[2].shape),
+        "illumination": illum,
+        "geometry": {"cluster": geo.cluster, "pixels_per_cta": geo.band_pixels,
+                     "shared_bytes": geo.shared_bytes,
+                     "max_active_clusters": geo.max_active_clusters},
+        "ok": ok, "repeats": repeats, "errors": errs, "elements_differing": differing,
+        "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops, **bound(nbytes, ops),
     }
+
+
+def check_fused_geometries(prev, curr, gt, cam, dev):
+    """The fused kernel (bias) at every cluster size that fits level 0,
+    against one plain run, timed: the sweep the geometry rule follows."""
+    args, kwargs = fused_case(prev, curr, gt, cam, dev, "bias")
+    hp, wp = args[1].shape[-2:]
+    out_p = fused_iter.fused_evaluation_plain(*args, **kwargs)
+    runs = []
+    for geo in level_solver.geometries(hp, wp, fused_iter.FUSED_KERNEL):
+        out_k = fused_iter._launch(*args, **kwargs, geometry=geo)
+        torch.cuda.synchronize()
+        ok, errs, differing = fused_agrees(out_k, out_p)
+        ms = time_ms(lambda: fused_iter._launch(*args, **kwargs, geometry=geo), 10, dev)
+        runs.append({"cluster": geo.cluster, "ok": ok, "ms": ms,
+                     "elements_differing": differing, "H_max_rel": errs["H"]["max_rel"]})
+    return {"phase": "kernel", "kernel": "fused_iter_geometries", "level": 0,
+            "batch": args[1].shape[0], "shape": [hp, wp], "illumination": "bias",
+            "chosen": fused_geometry(args[1], kwargs).cluster,
+            "ok": all(r["ok"] for r in runs), "runs": runs}
 
 
 def stack_case(prev, curr, gt, cam, dev, level):
@@ -636,14 +672,15 @@ def kernel_checks(frames, poses, cam, dev) -> list:
                     emit(checks[-1])
             checks.append(check_stack_kernel(prev, curr, gt, cam, dev, level))
             emit(checks[-1])
-        if batch in (FUSED_BATCH, MAIN_BATCH):
+        for illum in (None, "bias"):
+            checks.append(check_fused_kernel(prev, curr, gt, cam, dev, illum))
+            emit(checks[-1])
+        if batch in SWEEP_BATCHES:
             for level in (0, LEVELS - 1):
                 checks.append(check_level_geometries(prev, curr, gt, cam, dev, level))
                 emit(checks[-1])
-        if batch == FUSED_BATCH:
-            for illum in (None, "bias"):
-                checks.append(check_fused_kernel(prev, curr, gt, cam, dev, illum))
-                emit(checks[-1])
+            checks.append(check_fused_geometries(prev, curr, gt, cam, dev))
+            emit(checks[-1])
     failed = [c for c in checks if not c["ok"]]
     if failed:
         raise AssertionError(f"{len(failed)} kernel checks disagree with the plain versions")
@@ -683,7 +720,7 @@ def run(dev: torch.device, smi: str) -> list:
 
     # Phase 4: the main path, with the launch counts zeroed just before it.
     lm_level.launches = 0
-    fused_iteration.launches = 0
+    fused_iter.fused_evaluation.launches = 0
     stack_accumulate.launches = 0
     main = {"phase": "main_path", "image": [HEIGHT, WIDTH], "pairs": len(pairs),
             "kernel_path_pairs": kernel_path}
@@ -697,7 +734,8 @@ def run(dev: torch.device, smi: str) -> list:
     sessions = [f"session_{name}" for name in ("tpu_fast", *VARIANTS)]
     for name, key in zip(("tpu_fast", *VARIANTS), sessions):
         main[key] = run_session(grays, depths, cam, configs[name], poses, dev)
-    launches = {"level_solver": lm_level.launches, "fused_iter": fused_iteration.launches,
+    launches = {"level_solver": lm_level.launches,
+                "fused_iter": fused_iter.fused_evaluation.launches,
                 "stackwarp": stack_accumulate.launches}
     main["launches"] = launches
     emit(main)
@@ -756,18 +794,19 @@ def run(dev: torch.device, smi: str) -> list:
         }
 
     level0 = next(c for c in checks if c["kernel"] == "level_solver" and c["level"] == 0
-                  and c["batch"] == FUSED_BATCH and c["illumination"] is None
+                  and c["batch"] == SUMMARY_BATCH and c["illumination"] is None
                   and c["rel"] == 0.01)
-    fused0 = next(c for c in checks if c["kernel"] == "fused_iter" and c["illumination"] is None)
+    fused0 = next(c for c in checks if c["kernel"] == "fused_iter" and c["illumination"] is None
+                  and c["batch"] == SUMMARY_BATCH)
     stack0 = next(c for c in checks if c["kernel"] == "stackwarp" and c["level"] == 0
-                  and c["batch"] == FUSED_BATCH)
+                  and c["batch"] == SUMMARY_BATCH)
     kernels = [
         summary("level_solver", "dense_visual_odometry_torch/ops/cuda/csrc/level_solver.cu",
                 "dense_visual_odometry_tpu/ops/pallas/level_solver.py:268", level0,
                 ("est", "anchor")),
         summary("fused_iter", "dense_visual_odometry_torch/ops/cuda/csrc/fused_iter.cu",
                 "dense_visual_odometry_tpu/ops/pallas/fused_iter.py:56", fused0,
-                ("H", "b", "err_sum", "lam")),
+                ("H", "rhs", "err", "lam")),
         summary("stackwarp", "dense_visual_odometry_torch/ops/cuda/csrc/stackwarp.cu",
                 "dense_visual_odometry_tpu/ops/pallas/stackwarp.py:38", stack0,
                 ("samples",)),

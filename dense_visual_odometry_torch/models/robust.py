@@ -19,7 +19,8 @@ gradients on them.  Per level, the solver:
   (:func:`_lm_loop`), else the level kernel solves the level in one
   launch (``ops/cuda/level_solver.py``);
 - at level 0 re-evaluates the photometric Hessian at the solution: on the
-  fast path the fused kernel (``ops/cuda/fused_iter.py``) or, under
+  fast path one launch of the fused kernel (``ops/cuda/fused_iter.py``) on
+  the level solve's own inputs or, under
   "affine" illumination, whose rank-2 Schur that kernel lacks, the "shift"
   evaluation through the stack kernel.
 
@@ -563,7 +564,7 @@ def _solve_level(
             None if rel_eff is None
             else torch.broadcast_to(torch.as_tensor(rel_eff, dtype=torch.float32, device=dev), (b,))
         )
-        est, anchor, wlam, err, count, its = solve_level_fused(
+        est, anchor, wlam, err, count, its, level_in = solve_level_fused(
             planes0, cu0, cv0, depth_prev_m, gray_prev, jac_planes, intrinsics,
             estimate0, prior_anchor0, wlam0, rel,
             image_h=image_h, image_w=image_w, radius=radius,
@@ -594,10 +595,10 @@ def _solve_level(
         )
         hess = reduce_evaluation(res, jac, valid, wlam)[4]
     else:
-        _, u, v, valid_geom = warp_geometry(depth_prev_m, intrinsics, est, stride)
+        # One launch of the fused kernel on the level solve's own inputs.
         hess = fused_shift_iteration(
-            gray_prev, gray_curr, u, v, valid_geom, jac_planes, wlam,
-            frozen=(planes0, cu0, cv0), radius=radius, grid_stride=stride,
+            level_in, est, wlam, radius=radius, grid_stride=stride,
+            image_h=image_h, image_w=image_w,
             dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
             use_tweights=cfg.use_weighter,
             normalize_scale=cfg.weighter.normalize_scale,

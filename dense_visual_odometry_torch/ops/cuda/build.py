@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEADERS = ("dvo_common.cuh",)
+HEADERS = ("dvo_common.cuh", "cluster_eval.cuh")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, spills, shared memory) of each build made by

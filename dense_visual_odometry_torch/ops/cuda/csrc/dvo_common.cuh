@@ -1,25 +1,23 @@
-// Device code shared by the level-solver, fused-iteration and stack-warp
-// kernels.
+// Device code shared by the level-solver, fused-evaluation and stack-warp
+// kernels: the per-pixel pieces of one photometric evaluation.
 //
 // The level and fused kernels evaluate the same per-pixel photometric model
-// over the strided template grid of one batch element: sample the frozen
-// window around the integer centre (cu, cv), form the residual against the
-// template, take out the illumination pre-fit ("bias": the valid mean;
-// "affine", level kernel only: also the gain against the centred
-// template), run the t-distribution scale fixed point and reduce the
-// weighted 6x6 normal equations.  The per-pixel pieces here are that
-// evaluation; each kernel adds its own front end (the level kernel warps the
-// template points itself, the fused kernel reads precomputed displacements),
-// its own reductions (the level kernel over a thread-block cluster, the
-// fused kernel over one block: block_sum below) and its own epilogue.  The
-// stack-warp kernel is tent_sample alone.
+// over the strided template grid of one batch element, with the same code
+// (cluster_eval.cuh): warp the template points, sample the frozen window
+// around the integer centre (cu, cv) by its tent taps, form the residual
+// against the template, take out the illumination pre-fit ("bias": the
+// valid mean; "affine", level kernel only: also the gain against the
+// centred template), run the t-distribution scale fixed point and reduce
+// the weighted 6x6 normal equations over a thread-block cluster.  The level
+// kernel runs that evaluation once per LM iteration and takes the LM step;
+// the fused kernel runs it once.  The stack-warp kernel is tent_sample
+// alone.
 //
 // Arithmetic follows the Pallas kernels operation for operation; the only
-// intended difference is how the sums are taken (the level kernel adds in
-// float64, see level_solver.cu; the fused kernel in float32, in its own
-// order).  Build without
-// --use_fast_math and with -fmad=false: the solver relies on NaN-poisoned
-// points failing every comparison and on IEEE floor, sqrt and division.
+// intended difference is how the sums are taken (in float64, in a fixed
+// order; cluster_eval.cuh).  Build without --use_fast_math and with
+// -fmad=false: the solver relies on NaN-poisoned points failing every
+// comparison and on IEEE floor, sqrt and division.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,14 +25,14 @@
 
 namespace dvo {
 
-constexpr int kThreads = 512;  // threads of a level- or fused-kernel block
+constexpr int kThreads = 512;  // threads of a level- or fused-kernel CTA
 constexpr int kWarps = kThreads / 32;
-// Largest number of block-wide sums one reduction carries: H (21) + b (6)
-// + err, the bias's s + rho + g (6), and affine's s_ii + s_i1 + t_i +
+// Largest number of cluster-wide sums one reduction carries: H (21) + b
+// (6) + err, the bias's s + rho + g (6), and affine's s_ii + s_i1 + t_i +
 // g_i (6) = 45.
 constexpr int kMaxSums = 45;
 
-// Illumination models: kIllum of the evaluation templates below.
+// Illumination models: kIllum of the evaluation templates.
 constexpr int kIllumNone = 0;
 constexpr int kIllumBias = 1;
 constexpr int kIllumAffine = 2;
@@ -104,14 +102,6 @@ __device__ __forceinline__ float tent_sample(
   return isnan(du) || isnan(dv) ? nanf("") : acc;
 }
 
-// The same sample at a stride known only at run time (the fused kernel).
-__device__ __forceinline__ float tent_sample(
-    const float* __restrict__ planes, int s, int ph, int pw, int r,
-    int i, int j, float du, float dv) {
-  return s == 2 ? tent_sample<2>(planes, ph, pw, r, i, j, du, dv)
-                : tent_sample<1>(planes, ph, pw, r, i, j, du, dv);
-}
-
 // The t-distribution weight of a squared residual at scale lambda.
 __device__ __forceinline__ float t_weight(float rsq, float lam, float dof) {
   return (dof + 1.0f) / (dof + rsq * lam);
@@ -157,96 +147,6 @@ __device__ __forceinline__ void accumulate_system(
 #pragma unroll
     for (int a = 0; a < 6; ++a) acc[39 + a] += T(jw[a] * t);
   }
-}
-
-// ---------------------------------------------------------------------------
-// One block per batch element (the fused kernel).
-// ---------------------------------------------------------------------------
-
-// Block-wide sums of N per-thread partials.  Every thread holds the totals
-// in v after the call; the order of the sum is fixed by the launch shape,
-// so a run repeats bit for bit.  `red` is (kWarps + 1) * kMaxSums floats of
-// shared memory.
-template <int N>
-__device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
-  static_assert(N <= kMaxSums, "too many sums");
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    float x = v[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) red[warp * kMaxSums + k] = x;
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float x = lane < kWarps ? red[lane * kMaxSums + k] : 0.0f;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-      if (lane == 0) red[kWarps * kMaxSums + k] = x;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < N; ++k) v[k] = red[kWarps * kMaxSums + k];
-  __syncthreads();
-}
-
-// Residuals of one element are kept between passes in a global scratch row
-// with NaN marking invalid pixels (a valid residual is always finite: the
-// window and template are finite); under "bias" the stored residual is raw
-// and each pass subtracts the mean `mu` on the fly.
-
-// Scale fixed point of the t-distribution weights: `unroll` block-wide
-// passes over the stored residuals, each re-centred by `mu` when kBias.
-// Returns the final lambda.
-template <bool kBias>
-__device__ __forceinline__ float t_scale(
-    const float* __restrict__ res, int npx, float mu, float lam,
-    float dof, int unroll, bool normalize, float count_safe, float* red) {
-  for (int it = 0; it < unroll; ++it) {
-    float part = 0.0f;
-    for (int p = threadIdx.x; p < npx; p += kThreads) {
-      float r = res[p];
-      if (isnan(r)) continue;
-      if constexpr (kBias) r = r - mu;
-      const float rsq = r * r;
-      part += rsq * t_weight(rsq, lam, dof);
-    }
-    float tot[1] = {part};
-    block_sum(tot, red);
-    float sigma_sq = tot[0];
-    if (normalize) sigma_sq = sigma_sq / count_safe;
-    lam = 1.0f / fmaxf(sigma_sq, 1e-20f);
-  }
-  return lam;
-}
-
-// The weighted normal-equation sums over the stored residuals; `gray` and
-// `tpl_mu` are read under affine only.
-template <int kIllum>
-__device__ __forceinline__ void reduce_system(
-    const float* __restrict__ res, const float* __restrict__ jac,
-    const float* __restrict__ gray, float tpl_mu, int npx, float mu,
-    bool tweights, float lam, float dof, float (&acc)[kSums<kIllum>],
-    float* red) {
-#pragma unroll
-  for (int k = 0; k < kSums<kIllum>; ++k) acc[k] = 0.0f;
-  for (int p = threadIdx.x; p < npx; p += kThreads) {
-    float r = res[p];
-    if (isnan(r)) continue;
-    if constexpr (kIllum == kIllumBias) r = r - mu;
-    const float w = tweights ? t_weight(r * r, lam, dof) : 1.0f;
-    float j[6];
-#pragma unroll
-    for (int c = 0; c < 6; ++c) j[c] = jac[(size_t)c * npx + p];
-    const float t = kIllum == kIllumAffine ? gray[p] - tpl_mu : 0.0f;
-    accumulate_system<kIllum, float>(acc, r, w, j, t);
-  }
-  block_sum(acc, red);
 }
 
 }  // namespace dvo

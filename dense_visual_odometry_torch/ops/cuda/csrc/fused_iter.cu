@@ -1,110 +1,123 @@
-// One fused photometric evaluation, one block per batch element.
+// One photometric evaluation of a pose reduced to its 6x6 system, one
+// batch element over a thread-block cluster.
 //
 // Replaces: dense_visual_odometry_tpu/ops/pallas/fused_iter.py:56
-// _fused_kernel.
+// _fused_kernel, with the warp, masks and bias Schur of its wrapper
+// fused_shift_iteration (:239): illumination none or "bias", grid strides
+// 1 and 2.
 //
-// What bounds it on an H100: the bytes of one pass over the frozen window
-// taps, the displacements, validity, template and the 6 Jacobian planes,
-// plus the residual scratch re-read by the t-scale and reduction passes;
-// per pixel there are only a few dozen flops.  With one block per element
-// a batch of B uses min(B, 132) SMs.
+// It takes the level kernel's inputs (the frozen window, the NaN-poisoned
+// template points, the template, the Jacobian planes and the scalar row,
+// whose pose and t-scale lambda it evaluates) and runs the level kernel's
+// evaluation once (cluster_eval.cuh): the warp of the template points,
+// the ball, bounds and in-front masks, the tent taps, the bias centring,
+// `unroll` t-scale steps warm-started from the row's lambda, and the
+// weighted normal equations with the bias Schur, summed over the cluster
+// in float64.  The band's residuals stay in shared memory.  Each input is
+// read once, from device memory: points and template by the warp pass, the
+// Jacobian by the normal-equation pass.  Reading everything once, the
+// kernel prefers one wave of smaller clusters to two waves of larger ones
+// (fused_iter.FUSED_KERNEL).  A copy of the Jacobian into shared memory,
+// issued at the start to overlap the warp pass and the t-scale steps, was
+// slower at B=8 and 64 on an H100 (PERF.md).
 //
-// What the design does about it: the same shared evaluation as the level
-// kernel (dvo_common.cuh) -- <= 4 tent taps read straight from the parity
-// planes, warp-shuffle block reductions -- and only the 56-float row of
-// reduced scalars leaves the block.
-#include "dvo_common.cuh"
+// What bounds it on an H100: at B <= 8, latency: one warp pass and 5
+// dependent cluster reductions (count, 3 t-scale steps, normal equations),
+// about 40 us at B=1 and 60 us at B=8.  At B=64 (2-CTA clusters, 38,400
+// pixels per CTA) the bytes of the window taps, points, template and
+// Jacobian set the bound (83 us); the kernel takes about 2.2x that: with
+// one CTA of 16 warps per SM the warp pass issues too few loads and
+// divisions at once to keep the memory busy, the t-scale steps leave it
+// idle, and the float64 sums of the normal equations add a float-to-double
+// conversion per term (PERF.md).
+#include "cluster_eval.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
+constexpr int kOutCols = 48;
+
 struct FusedParams {
-  const float* planes;  // (B, s*s, ph, pw)
-  const float* du;      // (B, hp, wp)
-  const float* dv;      // (B, hp, wp)
-  const float* gray;    // (B, hp, wp)
-  const float* valid;   // (B, hp, wp) 0/1
-  const float* jac;     // (B, 6, hp, wp)
-  const float* lam0;    // (B,)
-  float* out;           // (B, 56): H 36 | b 6 | err_sum | count | lambda
-                        // | bias: s | rho | g 6 | zero
-  float* scratch;       // (B, hp * wp)
-  int s, ph, pw, hp, wp, radius, unroll, use_tweights, normalize_scale;
-  float dof;
+  dvo::EvalInputs in;
+  float* out;  // (B, 48): H 6x6 row-major | rhs 6 | err | count | lambda | zero
 };
 
-template <bool kBias>
-__global__ void __launch_bounds__(dvo::kThreads) fused_kernel(FusedParams P) {
-  const int b = blockIdx.x;
-  const int npx = P.hp * P.wp;
-  const size_t off = (size_t)b * npx;
-  const float* planes = P.planes + (size_t)b * P.s * P.s * P.ph * P.pw;
-  const float* jac = P.jac + (size_t)b * 6 * npx;
-  float* res = P.scratch + off;
-  __shared__ float red[(dvo::kWarps + 1) * dvo::kMaxSums];
+template <int kIllum, int S>
+__global__ void __launch_bounds__(dvo::kThreads, 1) fused_kernel(FusedParams P) {
+  const cg::cluster_group cl = cg::this_cluster();
+  const int nrank = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int b = blockIdx.x / nrank;
+  const float* scal = P.in.scal + (size_t)b * P.in.in_cols;
 
-  float part[2] = {0.0f, 0.0f};  // count, sum of residuals
-  for (int p = threadIdx.x; p < npx; p += dvo::kThreads) {
-    const float vf = P.valid[off + p];
-    float r = nanf("");
-    if (vf > 0.0f) {
-      const int i = p / P.wp;
-      const int j = p - i * P.wp;
-      r = dvo::tent_sample(planes, P.s, P.ph, P.pw, P.radius, i, j,
-                           P.du[off + p], P.dv[off + p]) - P.gray[off + p];
-      part[1] += r;
-    }
-    part[0] += vf;
-    res[p] = r;
-  }
-  dvo::block_sum(part, red);
-  const float count = part[0];
-  const float count_safe = fmaxf(count, 1.0f);
-  const float mu = kBias ? part[1] / count_safe : 0.0f;
+  __shared__ dvo::ClusterSums sums;
+  extern __shared__ __align__(16) float dyn[];
+  float* res = dyn;
+  const dvo::Band band = dvo::band_of<S>(P.in, b, rank, nrank);
 
-  float lam = P.lam0[b];
-  if (P.use_tweights)
-    lam = dvo::t_scale<kBias>(res, npx, mu, lam, P.dof, P.unroll,
-                              P.normalize_scale, count_safe, red);
-  constexpr int kIllum = kBias ? dvo::kIllumBias : dvo::kIllumNone;
-  float acc[dvo::kSums<kIllum>];
-  dvo::reduce_system<kIllum>(res, jac, nullptr, 0.0f, npx, mu, P.use_tweights,
-                             lam, P.dof, acc, red);
-
-  if (threadIdx.x == 0) {
-    float* o = P.out + (size_t)b * 56;
+  float T[12];
+#pragma unroll
+  for (int k = 0; k < 12; ++k) T[k] = __ldg(scal + k);
+  int phase = 0;
+  dvo::Evaluation<kIllum> ev;
+  dvo::evaluate<kIllum, S, false>(P.in, band, T, __ldg(scal + 32), res, sums, phase, cl, nrank,
+                                  ev);
+  if (rank == 0 && threadIdx.x == 0) {
+    float h21[21], rhs[6], err;
+    dvo::reduced_system(ev, h21, rhs, err);
+    float* o = P.out + (size_t)b * kOutCols;
     for (int i = 0, k = 0; i < 6; ++i)
       for (int j = i; j < 6; ++j, ++k) {
-        o[i * 6 + j] = acc[k];
-        o[j * 6 + i] = acc[k];
+        o[i * 6 + j] = h21[k];
+        o[j * 6 + i] = h21[k];
       }
-    for (int k = 0; k < 6; ++k) o[36 + k] = -acc[21 + k];
-    o[42] = acc[27];
-    o[43] = count;
-    o[44] = lam;
-    for (int k = 45; k < 56; ++k) o[k] = 0.0f;
-    if constexpr (kBias) {
-      o[45] = acc[28];
-      o[46] = acc[29];
-      for (int k = 0; k < 6; ++k) o[47 + k] = acc[30 + k];
-    }
+    for (int k = 0; k < 6; ++k) o[36 + k] = rhs[k];
+    o[42] = err;
+    o[43] = ev.count;
+    o[44] = ev.lam;
+    for (int k = 45; k < kOutCols; ++k) o[k] = 0.0f;
   }
+  // Every rank's partials stay until every rank has read them.
+  cl.sync();
+}
+
+using KernelFn = void (*)(FusedParams);
+
+template <int kIllum>
+KernelFn pick_stride(int s) {
+  return s == 2 ? fused_kernel<kIllum, 2> : fused_kernel<kIllum, 1>;
+}
+
+// illum: 0 none, 1 bias (dvo::kIllum*; no affine variant); s: 1 or 2.
+KernelFn pick(int illum, int s) {
+  if (illum == dvo::kIllumBias) return pick_stride<dvo::kIllumBias>(s);
+  return pick_stride<dvo::kIllumNone>(s);
 }
 
 }  // namespace
 
-extern "C" int dvo_fused_iteration(
-    const float* planes, const float* du, const float* dv, const float* gray,
-    const float* valid, const float* jac, const float* lam0, float* out,
-    float* scratch, int batch, int s, int ph, int pw, int hp, int wp,
-    int radius, float dof, int unroll, int use_tweights, int normalize_scale,
-    int illum_bias, void* stream) {
-  FusedParams P{planes, du, dv, gray, valid, jac, lam0, out, scratch,
-                s, ph, pw, hp, wp, radius, unroll, use_tweights,
-                normalize_scale, dof};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (illum_bias)
-    fused_kernel<true><<<batch, dvo::kThreads, 0, st>>>(P);
-  else
-    fused_kernel<false><<<batch, dvo::kThreads, 0, st>>>(P);
-  return static_cast<int>(cudaGetLastError());
+// How many clusters of this variant and shape the card holds at once
+// (cudaOccupancyMaxActiveClusters), in *out.  The level kernel's signature;
+// this kernel keeps no inputs resident.
+extern "C" int dvo_max_active_clusters(int illum, int s, int resident, int cluster,
+                                       int dynamic_bytes, int* out) {
+  if (illum == dvo::kIllumAffine || resident) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dvo::max_active_clusters(pick(illum, s), cluster, dynamic_bytes, out));
+}
+
+extern "C" int dvo_fused_evaluation(
+    const float* planes, const float* points, const float* gray,
+    const float* jac, const float* scal, float* out,
+    int batch, int s, int ph, int pw, int hp, int wp, int in_cols,
+    int radius, int image_h, int image_w, float dof, int unroll,
+    int use_tweights, int normalize_scale, int illum, int cluster, int band_stride,
+    int dynamic_bytes, void* stream) {
+  if (illum == dvo::kIllumAffine) return static_cast<int>(cudaErrorInvalidValue);
+  const FusedParams P{
+      {planes, points, gray, jac, scal, ph, pw, hp, wp, in_cols, radius, image_h, image_w,
+       unroll, use_tweights, normalize_scale, band_stride, dof},
+      out};
+  return static_cast<int>(dvo::launch(pick(illum, s), P, batch, cluster,
+                                      dynamic_bytes, static_cast<cudaStream_t>(stream)));
 }

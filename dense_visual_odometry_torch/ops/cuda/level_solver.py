@@ -9,7 +9,8 @@ cluster of CTAs, each CTA on a band of template rows; :func:`level_geometry`
 sizes it); on CPU tensors it runs :func:`lm_level_plain`, the same function
 in plain PyTorch.  Any other device raises.
 
-Per element the loop evaluates the trial pose (warp of NaN-poisoned
+Per element the loop evaluates the trial pose (:func:`level_evaluation`,
+which the fused kernel's plain version shares: warp of NaN-poisoned
 template points, ball / in-bounds / in-front masks, tent taps of the frozen
 window, optional illumination pre-fit (bias: valid-mean centring; affine:
 also the unweighted gain against the centred template), t-scale fixed
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -232,6 +233,54 @@ def _reduce(res, valid, gray, jac, lam, dof, unroll, use_tweights,
     return h21, rhs, err, count, lam
 
 
+def level_evaluation(
+    planes, points, gray_prev, jac_planes, scal, est, wlam, radius, grid_stride,
+    image_h, image_w, dof, unroll, use_tweights, normalize_scale,
+    illum_bias=False, illum_affine=False,
+):
+    """One evaluation of the pose ``est`` (12 columns (R | t), row-major,
+    each (B,)) with the t-scale warm-started at ``wlam`` (B,), on the level
+    kernel's inputs: warp of the NaN-poisoned template points, ball /
+    in-bounds / in-front masks, tent taps of the frozen window, then
+    :func:`_reduce`.  -> (h21, rhs, err, count, lam).  The plain version of
+    the evaluation that the level kernel runs once per LM iteration and the
+    fused kernel once (``csrc/cluster_eval.cuh``)."""
+    dev = points.device
+    hp, wp = points.shape[-2], points.shape[-1]
+    s = grid_stride
+    px, py, pz = points[:, 0], points[:, 1], points[:, 2]
+    fx, fy, cx, cy = (scal[:, k][:, None, None] for k in (33, 34, 35, 36))
+    col = torch.arange(wp, dtype=torch.float32, device=dev)[None, None, :]
+    row = torch.arange(hp, dtype=torch.float32, device=dev)[None, :, None]
+    coli = col * float(s) + scal[:, 37][:, None, None]
+    rowi = row * float(s) + scal[:, 38][:, None, None]
+    rad = float(radius)
+    r00, r01, r02, tx, r10, r11, r12, ty, r20, r21, r22, tz = (
+        e[:, None, None] for e in est
+    )
+    xp = r00 * px + r01 * py + r02 * pz + tx
+    yp = r10 * px + r11 * py + r12 * pz + ty
+    zp = r20 * px + r21 * py + r22 * pz + tz
+    in_front = zp > 1e-6
+    z_safe = torch.where(in_front, zp, torch.ones_like(zp))
+    u = (fx * xp + cx * zp) / z_safe
+    v = (fy * yp + cy * zp) / z_safe
+    du = u - coli
+    dv = v - rowi
+    in_ball = (du > -rad) & (du < rad) & (dv > -rad) & (dv < rad)
+    x0 = torch.floor(u)
+    y0 = torch.floor(v)
+    in_bounds = (
+        (x0 >= 0.0) & (y0 >= 0.0)
+        & (x0 + 1.0 <= float(image_w - 1)) & (y0 + 1.0 <= float(image_h - 1))
+    )
+    valid = in_ball & in_bounds & in_front
+    acc = tent_sample(planes, du, dv, radius, s)
+    res = torch.where(valid, acc - gray_prev, torch.zeros_like(acc))
+    return _reduce(res, valid, gray_prev, jac_planes, wlam, dof, unroll,
+                   use_tweights, normalize_scale, illum_bias, illum_affine)
+
+
 def lm_level_plain(
     planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
     image_h, image_w, dof, unroll, use_tweights, normalize_scale, tolerance,
@@ -241,43 +290,16 @@ def lm_level_plain(
     """Plain-PyTorch version of the level kernel: same inputs, same
     (B, 48) rows.  The loop runs while any element is active; finished
     elements keep their state, which is the kernel's per-element exit."""
-    b, _, hp, wp = points.shape
+    b = points.shape[0]
     dev = points.device
-    s = grid_stride
-    px, py, pz = points[:, 0], points[:, 1], points[:, 2]
-    fx, fy, cx, cy = (scal[:, k][:, None, None] for k in (33, 34, 35, 36))
     rel = scal[:, 39]
-    col = torch.arange(wp, dtype=torch.float32, device=dev)[None, None, :]
-    row = torch.arange(hp, dtype=torch.float32, device=dev)[None, :, None]
-    coli = col * float(s) + scal[:, 37][:, None, None]
-    rowi = row * float(s) + scal[:, 38][:, None, None]
-    rad = float(radius)
 
     def evaluate(est, wlam):
-        r00, r01, r02, tx, r10, r11, r12, ty, r20, r21, r22, tz = (
-            e[:, None, None] for e in est
+        return level_evaluation(
+            planes, points, gray_prev, jac_planes, scal, est, wlam, radius,
+            grid_stride, image_h, image_w, dof, unroll, use_tweights,
+            normalize_scale, illum_bias, illum_affine,
         )
-        xp = r00 * px + r01 * py + r02 * pz + tx
-        yp = r10 * px + r11 * py + r12 * pz + ty
-        zp = r20 * px + r21 * py + r22 * pz + tz
-        in_front = zp > 1e-6
-        z_safe = torch.where(in_front, zp, torch.ones_like(zp))
-        u = (fx * xp + cx * zp) / z_safe
-        v = (fy * yp + cy * zp) / z_safe
-        du = u - coli
-        dv = v - rowi
-        in_ball = (du > -rad) & (du < rad) & (dv > -rad) & (dv < rad)
-        x0 = torch.floor(u)
-        y0 = torch.floor(v)
-        in_bounds = (
-            (x0 >= 0.0) & (y0 >= 0.0)
-            & (x0 + 1.0 <= float(image_w - 1)) & (y0 + 1.0 <= float(image_h - 1))
-        )
-        valid = in_ball & in_bounds & in_front
-        acc = tent_sample(planes, du, dv, radius, s)
-        res = torch.where(valid, acc - gray_prev, torch.zeros_like(acc))
-        return _reduce(res, valid, gray_prev, jac_planes, wlam, dof, unroll,
-                       use_tweights, normalize_scale, illum_bias, illum_affine)
 
     zero = torch.zeros(b, dtype=torch.float32, device=dev)
     est0 = tuple(scal[:, 4 * r + c] for r in range(3) for c in range(4))
@@ -373,7 +395,9 @@ def lm_level_plain(
 # ---------------------------------------------------------------------------
 
 
-def _check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius):
+def check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius):
+    """Raise unless the level kernel's inputs (and the fused kernel's) have
+    the layout, type and device the kernels take."""
     b, _, hp, wp = points.shape
     s = grid_stride
     if s not in (1, 2):
@@ -414,21 +438,54 @@ class LevelGeometry:
         return self.shared_bytes - STATIC_SHARED_BYTES
 
 
+@dataclasses.dataclass(frozen=True)
+class ClusterKernel:
+    """What the geometry rule needs to know of a cluster kernel."""
+
+    library: str  # the kernel's source, csrc/<library>.cu
+    resident_planes: int  # band planes kept in shared memory where they fit
+    one_wave: bool  # prefer a size whose B clusters the card holds at once
+
+
+LEVEL_KERNEL = ClusterKernel("level_solver", RESIDENT_PLANES, one_wave=False)
+
+
 def band_rows(hp: int, cluster: int) -> List[Tuple[int, int]]:
     """Template rows [r0, r1) of each CTA rank, as the kernel splits them."""
     return [(k * hp // cluster, (k + 1) * hp // cluster) for k in range(cluster)]
 
 
-def _layout(hp: int, wp: int, cluster: int):
+def _layout(hp: int, wp: int, cluster: int, resident_planes: int = RESIDENT_PLANES):
     """(band pixels, band stride, resident, shared bytes) of a cluster size,
-    or None where even the band's residuals do not fit in shared memory."""
+    or None where even the band's residuals do not fit in shared memory.
+    ``resident_planes``: the band planes a kernel keeps in shared memory
+    where they fit (the residuals among them); else it keeps the residuals
+    alone.  ``resident``: more than the residuals are kept."""
     band = max(r1 - r0 for r0, r1 in band_rows(hp, cluster)) * wp
     stride = -(-band // 4) * 4
-    for resident, planes in ((True, RESIDENT_PLANES), (False, 1)):
+    for planes in (resident_planes, 1):
         shared = STATIC_SHARED_BYTES + 4 * planes * stride
         if shared <= SHARED_LIMIT:
-            return band, stride, resident, shared
+            return band, stride, planes > 1, shared
     return None
+
+
+def geometries(hp: int, wp: int, kernel: ClusterKernel) -> List[LevelGeometry]:
+    """Every launch geometry of ``kernel`` that fits an ``hp`` x ``wp``
+    level: each cluster size, with the resident planes where they fit and
+    with the residuals alone; the card is not asked.  The geometries a
+    launch may take on some batch size or card (``_launch(...,
+    geometry=...)`` runs each)."""
+    out = []
+    for c in CLUSTER_SIZES:
+        layout = _layout(hp, wp, c, kernel.resident_planes) if c <= hp else None
+        if layout is None:
+            continue
+        band, stride, resident, _ = layout
+        for planes in sorted({kernel.resident_planes if resident else 1, 1}, reverse=True):
+            out.append(LevelGeometry(c, band, stride, planes > 1,
+                                     STATIC_SHARED_BYTES + 4 * planes * stride, None))
+    return out
 
 
 def level_geometry(
@@ -437,27 +494,33 @@ def level_geometry(
     wp: int,
     sm_count: int,
     max_active_clusters: Optional[Callable[[int, bool, int], int]] = None,
+    kernel: ClusterKernel = LEVEL_KERNEL,
 ) -> LevelGeometry:
     """The launch geometry of a level of B = ``batch`` elements on an
-    ``hp`` x ``wp`` template grid, on a card of ``sm_count`` SMs.
+    ``hp`` x ``wp`` template grid, on a card of ``sm_count`` SMs, for
+    ``kernel`` (the level kernel's :data:`LEVEL_KERNEL` or the fused
+    kernel's ``fused_iter.FUSED_KERNEL``).
 
     The cluster size C is the largest of :data:`CLUSTER_SIZES` that
     1. gives every CTA at least one template row and fits the band's
-       residuals in shared memory (with the inputs too where they fit:
-       ``resident``);
+       residuals in shared memory (with the kernel's other resident planes
+       too where they fit: ``resident``);
     2. keeps B * C within the card's SMs and at least one pixel per thread
        in a CTA, unless it is the smallest size that passes 1;
     3. the card schedules: ``max_active_clusters(C, resident,
-       dynamic_bytes)`` (``cudaOccupancyMaxActiveClusters``) is at least 1.
-       Without the callable (CPU), every size passing 2 counts as
-       scheduled.
-    A batch of more clusters than the card holds at once runs in waves:
-    on an H100 (7 clusters of 16 at once) B=8 at 640x480's level 0 runs
-    faster on 16-CTA clusters with resident inputs, in two waves, than on
-    8-CTA clusters that stream them (PERF.md).  Raises if no size passes
-    1, or the card schedules none.
+       dynamic_bytes)`` (``cudaOccupancyMaxActiveClusters``) is at least 1,
+       and, for a ``one_wave`` kernel, at least B, where some size passing
+       2 is held B at once.  Without the callable (CPU), every size
+       passing 2 counts as scheduled.
+    A batch of more clusters than the card holds at once runs in waves.
+    On an H100 (7 clusters of 16 at once) B=8 at 640x480's level 0: the
+    level kernel runs faster on 16-CTA clusters with resident inputs, in
+    two waves, than on 8-CTA clusters that stream them every LM iteration;
+    the fused kernel, which reads its inputs once, runs faster on the
+    8-CTA clusters in one wave (PERF.md).  Raises if no size passes 1, or
+    the card schedules none.
     """
-    layouts = {c: _layout(hp, wp, c) for c in CLUSTER_SIZES if c <= hp}
+    layouts = {c: _layout(hp, wp, c, kernel.resident_planes) for c in CLUSTER_SIZES if c <= hp}
     fitting = [c for c, lay in layouts.items() if lay is not None]
     if not fitting:
         raise ValueError(
@@ -468,13 +531,19 @@ def level_geometry(
         c for c in fitting
         if c == fitting[0] or (batch * c <= sm_count and hp * wp >= c * THREADS)
     ]
+    scheduled = []
     for c in reversed(wanted):
         band, stride, resident, shared = layouts[c]
         active = None
         if max_active_clusters is not None:
             active = max_active_clusters(c, resident, shared - STATIC_SHARED_BYTES)
         if active is None or active >= 1:
-            return LevelGeometry(c, band, stride, resident, shared, active)
+            geometry = LevelGeometry(c, band, stride, resident, shared, active)
+            if not kernel.one_wave or active is None or active >= batch:
+                return geometry
+            scheduled.append(geometry)
+    if scheduled:
+        return scheduled[0]
     raise RuntimeError(f"the card schedules no cluster of sizes {wanted} for a {hp}x{wp} level")
 
 
@@ -486,36 +555,40 @@ _active_clusters: Dict[tuple, int] = {}
 _geometries: Dict[tuple, LevelGeometry] = {}
 
 
-def _max_active_clusters(device: torch.device, illum: int, grid_stride: int,
+def _max_active_clusters(device: torch.device, library: str, illum: int, grid_stride: int,
                          cluster: int, resident: bool, dynamic_bytes: int) -> int:
-    """cudaOccupancyMaxActiveClusters of one kernel variant and shape,
-    asked once per process."""
-    key = (device.index, illum, grid_stride, cluster, resident, dynamic_bytes)
+    """cudaOccupancyMaxActiveClusters of one variant and shape of the
+    kernel of ``csrc/<library>.cu``, asked once per process."""
+    key = (device.index, library, illum, grid_stride, cluster, resident, dynamic_bytes)
     if key not in _active_clusters:
-        fn = build.load("level_solver").dvo_level_max_active_clusters
+        fn = build.load(library).dvo_max_active_clusters
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
         count = ctypes.c_int(0)
         with torch.cuda.device(device):
             status = fn(illum, grid_stride, int(resident), cluster, dynamic_bytes,
                         ctypes.byref(count))
-        build.check(status, "level_solver occupancy query")
+        build.check(status, f"{library} occupancy query")
         _active_clusters[key] = count.value
     return _active_clusters[key]
 
 
 def launch_geometry(points: torch.Tensor, grid_stride: int, illum_bias: bool = False,
-                    illum_affine: bool = False) -> LevelGeometry:
-    """The geometry :func:`lm_level` launches with for these CUDA inputs."""
+                    illum_affine: bool = False,
+                    kernel: ClusterKernel = LEVEL_KERNEL) -> LevelGeometry:
+    """The geometry :func:`lm_level` (or, for ``fused_iter.FUSED_KERNEL``,
+    ``fused_evaluation``) launches with for these CUDA inputs."""
     b, _, hp, wp = points.shape
     dev = points.device
     illum = _illum_code(illum_bias, illum_affine)
-    key = (dev.index, b, hp, wp, grid_stride, illum)
+    key = (dev.index, kernel, b, hp, wp, grid_stride, illum)
     if key not in _geometries:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         _geometries[key] = level_geometry(
             b, hp, wp, sms,
-            lambda c, resident, dyn: _max_active_clusters(dev, illum, grid_stride, c, resident, dyn),
+            lambda c, resident, dyn: _max_active_clusters(
+                dev, kernel.library, illum, grid_stride, c, resident, dyn),
+            kernel,
         )
     return _geometries[key]
 
@@ -587,7 +660,7 @@ def lm_level(
             image_h, image_w, dof, unroll, use_tweights, normalize_scale,
             tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
             max_iterations, illum_bias, illum_affine)
-    _check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius)
+    check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius)
     if points.device.type == "cuda":
         return _launch(*args)
     if points.device.type == "cpu":
@@ -655,6 +728,17 @@ def level_inputs(
     return points, scal
 
 
+class LevelInputs(NamedTuple):
+    """The level kernel's inputs as :func:`solve_level_fused` passed them;
+    the fused kernel evaluates a pose on the same ones."""
+
+    planes: torch.Tensor
+    points: torch.Tensor
+    gray_prev: torch.Tensor
+    jac_planes: torch.Tensor
+    scal: torch.Tensor
+
+
 def solve_level_fused(
     planes: torch.Tensor,
     cu: torch.Tensor,
@@ -688,18 +772,22 @@ def solve_level_fused(
 
     depth_prev_m / gray_prev (B, H', W') on the strided grid; planes
     (B, s^2, ph, pw) frozen windows around cu / cv (B,) int32; the rest as
-    :func:`level_inputs`.  -> (est, anchor, wlam, err, count, iterations),
-    iterations being the batch maximum (a 0-d int32 tensor).
+    :func:`level_inputs`.  -> (est, anchor, wlam, err, count, iterations,
+    inputs), iterations being the batch maximum (a 0-d int32 tensor) and
+    inputs the kernel's :class:`LevelInputs`.
     """
     b = gray_prev.shape[0]
     points, scal = level_inputs(
         cu, cv, depth_prev_m, intrinsics, estimate0, anchor0, wlam0, rel,
         grid_stride,
     )
-    out = lm_level(
+    inputs = LevelInputs(
         planes.to(torch.float32).contiguous(), points,
         gray_prev.to(torch.float32).contiguous(),
         jac_planes.to(torch.float32).contiguous(), scal,
+    )
+    out = lm_level(
+        *inputs,
         radius=radius, grid_stride=grid_stride, image_h=image_h,
         image_w=image_w, dof=dof, unroll=unroll, use_tweights=use_tweights,
         normalize_scale=normalize_scale, tolerance=tolerance,
@@ -714,4 +802,4 @@ def solve_level_fused(
     est[:, 3, :] = bottom
     anchor[:, 3, :] = bottom
     its = torch.max(out[:, 36]).to(torch.int32)
-    return est, anchor, out[:, 32], out[:, 34], out[:, 35], its
+    return est, anchor, out[:, 32], out[:, 34], out[:, 35], its, inputs

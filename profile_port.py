@@ -14,19 +14,24 @@ pairs that the configuration's hard-motion trigger passes at every level
 (``chip_smoke.kernel_path_pairs``), and for ``tpu_fast`` the 16-frame
 ``OdometrySession`` (B=1).  Each run is done once unprofiled as a warm-up.
 Prints one JSON line per run: wall time, device kernel time and its share
-of the wall time, the kernels that took the most device time, and the
-device time and launches of each of the port's own kernels.
+of the wall time, the number of device kernels the run launched and how
+many of each name, the kernels that took the most device time, the device
+time and launches of each of the port's own kernels, and whether the
+profiled run's result equals the warm-up's bit for bit.
 
-``--kernels`` instead times the level and stack kernels on the inputs of
-``chip_smoke.py``'s kernel checks (levels 0 and 3, B=1, 8 and 64, every
-illumination variant and stopping rule; ``F.grid_sample`` beside the stack
-kernel) with its yardstick ``chip_smoke.time_ms``, one JSON line each, and
-says how far each level-kernel run is from the plain version
-(``chip_smoke.level_agrees``).  The inputs come from the ``chip_smoke.py``
-beside this script and the kernels from whichever package is imported, so
-another checkout's kernels (say, the parent commit unpacked under
-``out/parent``) are timed on the same inputs by running this script
-without its own directory on the path:
+``--kernels`` instead times the level, fused and stack kernels on the
+inputs of ``chip_smoke.py``'s kernel checks (levels 0 and 3, B=1, 8 and 64,
+every illumination variant and stopping rule of the level kernel; the fused
+kernel at level 0 without illumination and with the bias; ``F.grid_sample``
+beside the stack kernel) with its yardstick ``chip_smoke.time_ms``, one
+JSON line each, and says how far each level-kernel run is from the plain
+version (``chip_smoke.level_agrees``).  The inputs come from the
+``chip_smoke.py`` beside this script and the kernels from whichever package
+is imported, so another checkout's kernels (say, the parent commit unpacked
+under ``out/parent``) are timed on the same inputs by running this script
+without its own directory on the path.  A package whose fused kernel takes
+displacements (``fused_iteration``, before the kernel warped the template
+points itself) gets the displacements and validity of the same pose:
 
     PYTHONPATH=out/parent python3 -P profile_port.py --kernels
 """
@@ -66,11 +71,11 @@ OWN_KERNELS = ("level_kernel", "fused_kernel", "stack_kernel")
 
 
 def breakdown(name: str, fn, top: int = 8) -> dict:
-    fn()  # warm-up
+    first = fn()  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        second = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # Kernel-level events only: an operator's device time is that of the
@@ -86,18 +91,43 @@ def breakdown(name: str, fn, top: int = 8) -> dict:
         "run": name,
         "wall_ms": wall_ms,
         "device_kernel_ms": device_ms,
+        "device_kernels": sum(n for _, _, n in rows),
         "device_busy_share": device_ms / wall_ms,
+        "repeats": cs.bit_equal(first, second),
         "top": [{"name": k[:90], "ms": ms, "count": n} for k, ms, n in rows[:top]],
         "own_kernels": {
             own: {"ms": sum(ms for k, ms, _ in rows if own in k),
                   "count": sum(n for k, _, n in rows if own in k)}
             for own in OWN_KERNELS
         },
+        "counts": {k: n for k, _, n in sorted(rows)},
     }
 
 
+def fused_timing(prev, curr, gt, cam, dev, illum):
+    """-> (the fused kernel of the imported package on the inputs of
+    ``chip_smoke.fused_case``, what it takes)."""
+    args, kwargs = cs.fused_case(prev, curr, gt, cam, dev, illum)
+    if hasattr(cs.fused_iter, "fused_evaluation"):
+        return lambda: cs.fused_iter.fused_evaluation(*args, **kwargs), "level inputs"
+    # The displacements and validity of the same pose, the frozen window and
+    # lambda of the same row.
+    planes, points, gray, jac, scal = args
+    cfg = cs.RobustDVOConfig.from_json(cs.CONFIGS / "tpu_fast.json")
+    fl = cs.robust.frozen_level(prev.gray[0], prev.depth_m[0], curr.gray[0], cam.at(0).to(dev),
+                                cs.start_estimates(gt, 0), cfg, 0)
+    du, dv, valid = cs.residual_displacements(fl.u0, fl.v0, fl.cu, fl.cv, kwargs["radius"],
+                                              kwargs["grid_stride"], kwargs["image_h"],
+                                              kwargs["image_w"])
+    fargs = (planes, du.contiguous(), dv.contiguous(), gray,
+             (valid & fl.valid_geom0).to(torch.float32), jac, scal[:, 32:33].contiguous())
+    fkw = {k: kwargs[k] for k in ("radius", "grid_stride", "dof", "unroll", "use_tweights",
+                                  "normalize_scale", "illum_bias")}
+    return lambda: cs.fused_iter.fused_iteration(*fargs, **fkw), "displacements"
+
+
 def kernel_times(frames, poses, cam, dev) -> None:
-    """``--kernels``: the level and stack kernels' times, one line each."""
+    """``--kernels``: the level, fused and stack kernels' times, one line each."""
     for batch in cs.KERNEL_BATCHES:
         prev, curr, gt = cs.kernel_batch(frames, poses, dev, batch)
         for level in (0, cs.LEVELS - 1):
@@ -115,6 +145,14 @@ def kernel_times(frames, poses, cam, dev) -> None:
                         "agrees_with_plain": ok, "elements_differing": differing,
                         **{f"{k}_max_abs": errs[k]["max_abs"]
                            for k in ("est", "count", "iterations")},
+                    }), flush=True)
+            if level == 0:
+                for illum in (None, "bias"):
+                    fn, inputs = fused_timing(prev, curr, gt, cam, dev, illum)
+                    print(json.dumps({
+                        "kernel": "fused_iter", "batch": batch, "level": 0,
+                        "illumination": illum, "inputs": inputs,
+                        "ms": cs.time_ms(fn, 20, dev),
                     }), flush=True)
             args, _, library = cs.stack_case(prev, curr, gt, cam, dev, level)
             print(json.dumps({
@@ -157,8 +195,7 @@ def main() -> int:
 
         def session():
             s = OdometrySession(cam, cfg, device=dev)
-            for g, d in zip(grays, depths):
-                s.step(g, d).matrix.cpu()
+            return torch.stack([s.step(g, d).matrix.cpu() for g, d in zip(grays, depths)])
 
         def batched(sel):
             rows = (sel * (-(-cs.MAIN_BATCH // len(sel))))[: cs.MAIN_BATCH]
