@@ -1,12 +1,12 @@
 """Dense visual odometry in PyTorch with hand-written CUDA kernels for Hopper.
 
 The port of ``dense_visual_odometry_tpu`` (the JAX package, kept beside it as
-the reference).  This slice carries frame-to-frame robust photometric
-odometry at the shipped tiers (``configs/tpu_fast.json``,
-``configs/tpu_parity.json``): ``models.robust.track_pair``,
-``parallel.batched.batched_track_pair`` and ``models.session.OdometrySession``.
-The two kernels of that path live in ``ops/cuda``; each has a plain PyTorch
-version that the CPU runs.
+the reference).  It carries frame-to-frame robust photometric odometry under
+every shipped configuration (``configs/*.json``): ``models.robust.track_pair``,
+``parallel.batched.batched_track_pair``, ``models.session.OdometrySession``
+and the multi-stream ``models.batched_session.BatchedOdometrySession``.
+The three kernels of that path live in ``ops/cuda``; each has a plain
+PyTorch version that the CPU runs.
 
 Geometry stays in full float32: TF32 is switched off for matrix products
 and convolutions, as the JAX package forces highest matmul precision.

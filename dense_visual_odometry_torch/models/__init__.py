@@ -1,1 +1,1 @@
-"""Tracking models: the robust frame-to-frame solver and the session."""
+"""Tracking models: the robust frame-to-frame solver and the sessions."""

@@ -1,28 +1,35 @@
-"""Robust dense visual odometry: coarse-to-fine photometric LM tracking.
+"""Robust dense visual odometry: coarse-to-fine photometric LM / Gauss-Newton.
 
-Counterpart of ``dense_visual_odometry_tpu/models/robust.py`` for the
-branches the shipped tiers (``configs/tpu_fast.json``,
-``configs/tpu_parity.json``) take, and for affine illumination and ESM
-gradients on them.  Per level, the solver:
+Counterpart of ``dense_visual_odometry_tpu/models/robust.py``: every
+evaluation mode, both loops, the hard-motion fallback, the retrack and the
+init selection with its scale ladder.  Per level (:func:`level_plan` fixes
+the branches from the configuration and the level), the solver:
 
-- builds the inverse-compositional Jacobian planes on the strided grid
-  from the template's Sobel gradients;
-- extracts the frozen window of the current image once, at the level's
-  starting estimate, around an integer centre per element; with ESM
-  gradients, samples that window once through the stack kernel
-  (``ops/cuda/stackwarp.py``) and averages the warped image's gradient
-  into the Jacobian planes;
-- evaluates the hard-motion trigger (shift-ball coverage, rotation angle
-  and, at the coarsest level, RMS displacement) at that estimate.  The
-  predicate is batch-global: if any element is hard, the whole batch runs
-  the LM loop on the gather path with exact current-image gradients
-  (:func:`_lm_loop`), else the level kernel solves the level in one
-  launch (``ops/cuda/level_solver.py``);
-- at level 0 re-evaluates the photometric Hessian at the solution: on the
-  fast path one launch of the fused kernel (``ops/cuda/fused_iter.py``) on
-  the level solve's own inputs or, under
-  "affine" illumination, whose rank-2 Schur that kernel lacks, the "shift"
-  evaluation through the stack kernel.
+- builds the level's estimate-independent inputs: at a frozen-window level
+  (``freeze_shift_window`` on the fused path) the window of the current
+  image, extracted once around an integer centre per element, and the
+  Jacobian planes, ESM-averaged through one pass of the stack kernel
+  (``ops/cuda/stackwarp.py``); elsewhere the template's Jacobian (ESM
+  averaged with the current image's gradients sampled nearest at the
+  level-start warp) or, with exact gradients, the current image's Sobel
+  gradients;
+- evaluates the hard-motion trigger at the level's starting estimate
+  (shift-ball coverage; with the template's Jacobian also the rotation
+  angle and, at the coarsest level, the RMS displacement).  The predicate
+  is batch-global and fixed for the level: if any element is hard, the
+  whole batch evaluates on the packed gather path ("packed_exact" with the
+  current image's exact gradients, or "packed");
+- else evaluates in the level's mode: "fused" (one launch of the fused
+  kernel, ``ops/cuda/fused_iter.py``, on the frozen window or on one
+  recentred at the evaluated estimate), "shift" (the stack kernel),
+  "packed" (the f16-packed gather) or "plain" (bilinear sampling, exact or
+  precomputed Jacobian);
+- solves the level: in one launch of the level kernel
+  (``ops/cuda/level_solver.py``) on a frozen-window LM level off the
+  fallback, else in the LM loop (:func:`_lm_loop`) or, with ``lm_lambda0``
+  unset, the Gauss-Newton loop with the reference's stopping semantics
+  (:func:`_gn_loop`);
+- at level 0 re-evaluates the photometric Hessian at the solution.
 
 After the cascade, elements whose finest-level IRLS scale exceeds
 ``retrack_max_scale`` are solved again with the hard-motion path forced at
@@ -30,8 +37,12 @@ every level.  Data-dependent control flow (the trigger, loop exits, the
 retrack) reads device values on the host, as ``lax.cond`` /
 ``lax.while_loop`` did inside the JAX program.
 
-Configurations whose branches are not ported raise ``NotImplementedError``
-naming the ROADMAP.md port-queue item that will bring them.
+Still refused, with ``NotImplementedError`` naming ROADMAP.md's port queue
+item 1: the motion prior (``sigma``), the depth term, row-block and tile
+recentering, the anisotropic ball (``shift_stack_radius_y``), and grid
+strides other than 1 and 2 at the levels that reach a kernel.  ESM
+gradients on the fused path without ``freeze_shift_window`` never get here:
+the configuration refuses them, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -51,11 +62,18 @@ from dense_visual_odometry_torch.ops import interp as interp_ops
 from dense_visual_odometry_torch.ops import pyramid as pyr_ops
 from dense_visual_odometry_torch.ops.cuda import stackwarp
 from dense_visual_odometry_torch.ops.cuda.fused_iter import fused_shift_iteration
-from dense_visual_odometry_torch.ops.cuda.level_solver import solve_level_fused
+from dense_visual_odometry_torch.ops.cuda.level_solver import (
+    LevelInputs,
+    level_inputs,
+    solve_level_fused,
+    with_window,
+)
 from dense_visual_odometry_torch.ops.residuals import (
+    approximate_jacobian,
     approximate_jacobian_planes,
     normal_equations,
     warp_geometry,
+    warp_residuals,
     warp_residuals_packed,
     warp_residuals_shift,
 )
@@ -159,38 +177,27 @@ def frame_data_from_numpy(frame, device) -> FrameData:
 
 
 def _check_ported(cfg: RobustDVOConfig) -> None:
-    """Raise for configurations whose branches this port does not have."""
+    """Raise for configurations whose branches this port does not have yet:
+    all of them wait in ROADMAP.md's port queue item 1."""
 
-    def missing(what: str, item: int) -> NotImplementedError:
+    def missing(what: str) -> NotImplementedError:
         return NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md, port queue item {item})"
+            f"{what} is not ported yet (ROADMAP.md, port queue item 1)"
         )
 
     if cfg.sigma is not None:
-        raise missing("the motion prior (sigma)", 1)
+        raise missing("the motion prior (sigma)")
     if cfg.use_depth_residuals:
-        raise missing("the depth-residual term", 1)
+        raise missing("the depth-residual term")
     if (cfg.recenter_blocks or 1) > 1 or (cfg.recenter_col_blocks or 1) > 1:
-        raise missing("row-block / tile recentering", 1)
-    if cfg.lm_lambda0 is None:
-        raise missing("the Gauss-Newton loop (lm_lambda0 = None)", 2)
-    if cfg.init_scale_ladder is not None:
-        raise missing("the init-scale ladder", 2)
-    fused_levels = (
-        cfg.shift_stack_radius is not None
-        and set(range(cfg.levels)) <= set(cfg.shift_stack_levels)
-        and cfg.use_fused_iteration
-        and cfg.approximate_image2_gradient
-        and cfg.freeze_shift_window
-        and cfg.use_level_kernel
-    )
-    if not fused_levels:
-        raise missing(
-            "evaluation off the frozen-window fused path ('packed' and "
-            "'plain' modes)", 2,
-        )
-    if any(cfg.stride_for_level(lv) not in (1, 2) for lv in range(cfg.levels)):
-        raise missing("grid strides other than 1 and 2", 1)
+        raise missing("row-block / tile recentering")
+    if cfg.shift_stack_radius_y is not None:
+        raise missing("the anisotropic shift ball (shift_stack_radius_y)")
+    # The kernels take strides 1 and 2; "packed" and "plain" levels any.
+    for level in range(cfg.levels):
+        plan = level_plan(cfg, level)
+        if plan.shift_stack and plan.stride not in (1, 2):
+            raise missing(f"grid stride {plan.stride} at a kernel level")
 
 
 def _bias_schur(sys, residuals, jacobian, weights):
@@ -330,11 +337,55 @@ def _lm_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
 
 
 def _use_esm(cfg: RobustDVOConfig, level: int) -> bool:
-    """Whether ``level`` takes ESM gradients (on the frozen-window path)."""
+    """Whether ``level`` takes ESM gradients."""
     return (
         cfg.use_esm_gradients
         and cfg.approximate_image2_gradient
         and (cfg.esm_levels is None or level in cfg.esm_levels)
+    )
+
+
+class LevelPlan(NamedTuple):
+    """The branches one level takes (the JAX package's ``_solve_level``
+    predicates), fixed by the configuration and the level alone."""
+
+    stride: int
+    shift_stack: bool  # the current image is sampled through a shift window
+    fused: bool  # the fused kernels evaluate the level
+    frozen: bool  # the window is extracted once, at the level's start
+    esm: bool
+    level_kernel: bool  # the LM loop runs in the level kernel
+    fallback: bool  # the hard-motion trigger may send the level to the gather path
+    default_mode: str  # "fused", "shift", "packed" or "plain"
+
+
+def level_plan(cfg: RobustDVOConfig, level: int) -> LevelPlan:
+    shift_stack = cfg.shift_stack_radius is not None and level in cfg.shift_stack_levels
+    fused = (
+        shift_stack
+        and cfg.use_fused_iteration
+        and cfg.approximate_image2_gradient
+        # Affine rides the level kernel only; its other evaluations are "shift".
+        and (
+            cfg.illumination in (None, "bias")
+            or (cfg.illumination == "affine" and cfg.use_level_kernel)
+        )
+    )
+    frozen = fused and cfg.freeze_shift_window
+    if shift_stack:
+        mode = "fused" if fused and cfg.illumination != "affine" else "shift"
+    else:
+        mode = "packed" if cfg.packed_sampling else "plain"
+    return LevelPlan(
+        stride=cfg.stride_for_level(level),
+        shift_stack=shift_stack,
+        fused=fused,
+        frozen=frozen,
+        esm=_use_esm(cfg, level),
+        level_kernel=cfg.use_level_kernel and frozen and cfg.lm_lambda0 is not None,
+        fallback=cfg.shift_stack_fallback
+        and (shift_stack or cfg.approximate_image2_gradient),
+        default_mode=mode,
     )
 
 
@@ -405,21 +456,89 @@ def frozen_level(
     )
 
 
-def _shift_jacobian(fl, gray_prev_full, intrinsics, cfg, level) -> torch.Tensor:
-    """The "shift" evaluation's Jacobian (B, H', W', 6): the template's own,
-    without ESM's average.  The reference builds it at full resolution and
-    strides it; on the strided grid the same elementwise terms give the
-    same values, so off ESM levels the level's planes are it."""
-    if not _use_esm(cfg, level):
-        return fl.jac_planes.permute(0, 2, 3, 1)
+def _template_gradients(
+    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level, esm=False,
+):
+    """The template's Sobel gradients (``gray_prev`` and ``depth_prev_m`` at
+    full resolution) on the level's strided grid, from which the
+    precomputed Jacobian is built.
+
+    With ``esm`` (the ESM branch off the fused kernels), the current
+    image's gradients, sampled nearest once at the level-start warp of the
+    full-resolution grid, are averaged in wherever that sample is valid.
+    The JAX package builds the Jacobian at full resolution and strides it;
+    built on the strided grid from these its values are the same.
+    """
     stride = cfg.stride_for_level(level)
     sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
-    gx1, gy1 = grad_ops.sobel(gray_prev_full)
-    planes = approximate_jacobian_planes(
-        fl.depth_prev_m, intrinsics, (gx1 / sgain)[..., ::stride, ::stride],
-        (gy1 / sgain)[..., ::stride, ::stride], grid_stride=stride,
+    gx1, gy1 = grad_ops.sobel(gray_prev)
+    g1x, g1y = gx1 / sgain, gy1 / sgain
+    if esm:
+        gx2, gy2 = grad_ops.sobel(gray_curr)
+        packed_g2 = interp_ops.pack_pair_f16(gx2 / sgain, gy2 / sgain)
+        _, u0f, v0f, vg0f = warp_geometry(depth_prev_m, intrinsics, estimate0, 1)
+        g2x, g2y, ok2 = interp_ops.nearest_sample_packed(packed_g2, u0f, v0f)
+        okm = vg0f & ok2
+        g1x = torch.where(okm, 0.5 * (g1x + g2x), g1x)
+        g1y = torch.where(okm, 0.5 * (g1y + g2y), g1y)
+    return g1x[..., ::stride, ::stride], g1y[..., ::stride, ::stride]
+
+
+def _gn_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
+    """Gauss-Newton over a batch with per-element stopping (``lm_lambda0``
+    unset), the reference's semantics: the tolerance test comes before the
+    increment is applied, an increment is applied only where the error
+    decreased (so the estimate is the best one seen), an error increase
+    bumps a counter that ends the element past
+    ``max_increased_steps_allowed``, and ``err_prev`` moves only on
+    acceptance.  One evaluation per iteration; the iteration count is
+    shared.  -> (estimate, anchor, lambda, diagnostics).
+    """
+    b = estimate0.shape[0]
+    dev = estimate0.device
+    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    estimate, anchor = estimate0, anchor0
+    err_prev = torch.full((b,), _FMAX, dtype=torch.float32, device=dev)
+    err_last = torch.full((b,), _FMAX, dtype=torch.float32, device=dev)
+    count_last = torch.zeros((b,), dtype=torch.float32, device=dev)
+    wlam = torch.full(
+        (b,), 1.0 / (cfg.weighter.initial_sigma**2), dtype=torch.float32, device=dev
     )
-    return planes.permute(0, 2, 3, 1)
+    inc_count = torch.zeros((b,), dtype=torch.int32, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iterations and bool(torch.any(~done)):
+        hess, rhs, err, count, _photo, wlam = evaluate(estimate, anchor, wlam)
+        # 6x6 solve with a tiny Tikhonov floor for a rank-deficient H.
+        damp = 1e-8 * (1.0 + torch.diagonal(hess, dim1=-2, dim2=-1).sum(-1))
+        delta = torch.linalg.solve(hess + damp[:, None, None] * eye6, rhs[..., None])[..., 0]
+        ok = torch.all(torch.isfinite(delta), dim=-1) & (count >= 6.0)
+        delta = torch.where(ok[:, None], delta, torch.zeros_like(delta))
+        inc = se3.exp(delta)
+        err_diff = err - err_prev
+        converged = torch.abs(err_diff) < cfg.tolerance
+        if cfg.relative_tolerance is not None:
+            converged = converged | (torch.abs(err_diff) < rel_eff * torch.abs(err))
+        decreased = err_diff < 0.0
+        active = ~done
+        accept = decreased & ~converged & ok & active
+        estimate = torch.where(accept[:, None, None], inc @ estimate, estimate)
+        err_prev = torch.where(accept, err, err_prev)
+        inc_count = torch.where(
+            converged | ~active, inc_count,
+            torch.where(decreased, torch.zeros_like(inc_count), inc_count + 1),
+        )
+        done = done | converged | (inc_count > cfg.max_increased_steps_allowed) | ~ok
+        err_last = torch.where(active, err, err_last)
+        count_last = torch.where(active, count, count_last)
+        it += 1
+    diag = LevelDiagnostics(
+        iterations=torch.tensor(it, dtype=torch.int32, device=dev),
+        error=err_last,
+        count=count_last,
+        scale=torch.rsqrt(torch.clamp(wlam, min=1e-20)),
+    )
+    return estimate, anchor, wlam, diag
 
 
 def _solve_level(
@@ -438,26 +557,74 @@ def _solve_level(
     (B, 4, 4).  -> (estimate, diagnostics, photometric Hessian or zeros)."""
     b = estimate0.shape[0]
     dev = estimate0.device
-    stride = cfg.stride_for_level(level)
+    plan = level_plan(cfg, level)
+    stride = plan.stride
     radius = cfg.shift_stack_radius
+    approx = cfg.approximate_image2_gradient
     sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
     illum_bias = cfg.illumination == "bias"
     illum_affine = cfg.illumination == "affine"
     image_h, image_w = gray_curr.shape[-2], gray_curr.shape[-1]
-    gray_prev_full = gray_prev
+    gray_prev_full, depth_prev_full = gray_prev, depth_prev_m
 
-    fl = frozen_level(
-        gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level
-    )
-    gray_prev, depth_prev_m, jac_planes = fl.gray_prev, fl.depth_prev_m, fl.jac_planes
-    u0, v0, vg0 = fl.u0, fl.v0, fl.valid_geom0
-    planes0, cu0, cv0 = fl.planes, fl.cu, fl.cv
+    # Estimate-independent inputs, once per level.
+    fl = None  # the frozen window and the fused kernels' Jacobian planes
+    jac_planes = None  # (B, 6, H', W') of the fused kernels
+    pre_jac = None  # (B, H', W', 6) of the other evaluations
+    grads = None  # exact mode: the current image's gradients
+    if plan.frozen:
+        fl = frozen_level(
+            gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level
+        )
+        gray_prev, depth_prev_m, jac_planes = fl.gray_prev, fl.depth_prev_m, fl.jac_planes
+    else:
+        gray_prev = gray_prev_full[..., ::stride, ::stride].contiguous()
+        depth_prev_m = depth_prev_full[..., ::stride, ::stride].contiguous()
     hp, wp = gray_prev.shape[-2], gray_prev.shape[-1]
+    if not approx:
+        gx2, gy2 = grad_ops.sobel(gray_curr)
+        grads = (gx2 / sgain, gy2 / sgain)
+    elif fl is None or illum_affine:
+        # ESM at a fused level averages into the frozen window's planes
+        # (the configuration requires the frozen window there); affine's
+        # "shift" Jacobian is the template's own.
+        g1x_s, g1y_s = _template_gradients(
+            gray_prev_full, depth_prev_full, gray_curr, intrinsics, estimate0, cfg,
+            level, esm=plan.esm and not plan.fused,
+        )
+        if not plan.fused or illum_affine:
+            # Affine's "shift" evaluations take the template's own Jacobian,
+            # without ESM's average, beside the level kernel's planes.
+            pre_jac = approximate_jacobian(
+                depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
+            )
+        if plan.default_mode == "fused" and fl is None:
+            jac_planes = approximate_jacobian_planes(
+                depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
+            )
+    # The packed image of the "packed" mode (the fallback packs its own).
+    gray_curr_packed = (
+        interp_ops.pack_neighbors(gray_curr) if plan.default_mode == "packed" else None
+    )
+    grads_packed = (
+        interp_ops.pack_pair_f16(*grads)
+        if grads is not None and (cfg.packed_sampling or plan.shift_stack)
+        else None
+    )
 
     def fallback_trigger():
-        """-> per-element hard-motion flags at the level's start."""
-        cov = shift_coverage(u0, v0, radius, stride, coord_mask=vg0)
+        """-> per-element hard-motion flags at the level's start: shift-ball
+        coverage, and with the template's Jacobian the rotation angle and,
+        at the coarsest level, the RMS displacement."""
+        if fl is not None:
+            u0, v0, vg0 = fl.u0, fl.v0, fl.valid_geom0
+        else:
+            _, u0, v0, vg0 = warp_geometry(depth_prev_m, intrinsics, estimate0, stride)
+        r = radius if radius is not None else 4
+        cov = shift_coverage(u0, v0, r, stride, coord_mask=vg0)
         hard = cov < cfg.shift_fallback_min_coverage
+        if not approx:
+            return hard
         rot = estimate0[:, :3, :3]
         cos_t = 0.5 * (torch.diagonal(rot, dim1=-2, dim2=-1).sum(-1) - 1.0)
         theta = torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
@@ -465,7 +632,7 @@ def _solve_level(
         # relaxed rotation threshold may apply there.
         max_rot = (
             cfg.esm_fallback_max_rotation
-            if _use_esm(cfg, level) and cfg.esm_fallback_max_rotation is not None
+            if plan.esm and cfg.esm_fallback_max_rotation is not None
             else cfg.fallback_max_rotation
         )
         hard = hard | (theta > max_rot)
@@ -482,12 +649,12 @@ def _solve_level(
 
     rel_eff = cfg.relative_tolerance
     need_fb = False
-    if cfg.shift_stack_fallback:
+    if plan.fallback:
         hard0 = fallback_trigger()
         if force_hard is not None:
             hard0 = hard0 | force_hard
-        # One predicate for the whole batch: a mixed batch takes the
-        # always-correct gather path.
+        # One predicate for the whole batch, fixed for the level: a mixed
+        # batch takes the always-correct gather path.
         need_fb = bool(torch.any(hard0))
         if rel_eff is not None:
             rel_eff = rel_eff * torch.where(
@@ -495,6 +662,33 @@ def _solve_level(
                 torch.tensor(cfg.fallback_tolerance_scale, device=dev),
                 torch.tensor(1.0, device=dev),
             )
+
+    wlam_init = torch.full(
+        (b,), 1.0 / (cfg.weighter.initial_sigma**2), dtype=torch.float32, device=dev
+    )
+    level_in = None  # the fused kernels' inputs (LevelInputs), built once
+
+    def fused_inputs(estimate) -> LevelInputs:
+        """The fused kernel's inputs for an evaluation of ``estimate``: the
+        frozen window, or (``freeze_shift_window`` off) the window recentred
+        at ``estimate``."""
+        nonlocal level_in
+        if level_in is None:
+            zero = torch.zeros((b,), dtype=torch.int32, device=dev)
+            cu, cv = (fl.cu, fl.cv) if fl is not None else (zero, zero)
+            points, scal = level_inputs(
+                cu, cv, depth_prev_m, intrinsics, estimate0, prior_anchor0, wlam_init,
+                None, stride,
+            )
+            level_in = LevelInputs(
+                None if fl is None else fl.planes, points, gray_prev, jac_planes, scal
+            )
+        if fl is not None:
+            return level_in
+        _, u, v, vg = warp_geometry(depth_prev_m, intrinsics, estimate, stride)
+        cu, cv = compute_recenter(u, v, radius, stride, vg)
+        planes = extract_parity_planes(gray_curr, cu, cv, hp, wp, radius, stride)
+        return with_window(level_in, planes, cu, cv)
 
     def reduce_evaluation(res, jac, valid, weight_lambda):
         """Illumination pre-fit, IRLS weights, normal equations and the
@@ -528,45 +722,75 @@ def _solve_level(
             sys = _affine_schur(sys, res, jac, weights, tpl_c)
         return sys.hessian, sys.rhs, sys.error, sys.count, sys.hessian, weight_lambda
 
-    def evaluate_fallback(fb_prep):
-        packed, grads_packed = fb_prep
-
-        def evaluate(estimate, _anchor, weight_lambda):
-            res, jac, valid = warp_residuals_packed(
-                gray_prev, depth_prev_m, packed, intrinsics, estimate,
-                grads_packed=grads_packed, grid_stride=stride,
+    def eval_mode(mode, estimate, weight_lambda, fb_prep):
+        """One evaluation -> (H, b, err, count, photometric H, lambda)."""
+        if mode == "fused":
+            hess, rhs, err, count, lam = fused_shift_iteration(
+                fused_inputs(estimate), estimate, weight_lambda, radius=radius,
+                grid_stride=stride, image_h=image_h, image_w=image_w,
+                dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
+                use_tweights=cfg.use_weighter,
+                normalize_scale=cfg.weighter.normalize_scale, illum_bias=illum_bias,
             )
-            return reduce_evaluation(res, jac, valid, weight_lambda)
+            return hess, rhs, err, count, hess, lam
+        if mode == "shift":
+            res, jac, valid = warp_residuals_shift(
+                gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
+                grads_packed=grads_packed, precomputed_jacobian=pre_jac,
+                grid_stride=stride, radius=radius,
+            )
+        elif mode == "packed":
+            # As the fallback's mode (exact gradients) it samples the
+            # fallback's packed image with the level's own gradients.
+            res, jac, valid = warp_residuals_packed(
+                gray_prev, depth_prev_m,
+                gray_curr_packed if fb_prep is None else fb_prep[0],
+                intrinsics, estimate, grads_packed=grads_packed,
+                precomputed_jacobian=pre_jac, grid_stride=stride,
+            )
+        elif mode == "packed_exact":
+            res, jac, valid = warp_residuals_packed(
+                gray_prev, depth_prev_m, fb_prep[0], intrinsics, estimate,
+                grads_packed=fb_prep[1], grid_stride=stride,
+            )
+        elif pre_jac is not None:
+            res, jac, valid = warp_residuals(
+                gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
+                precomputed_jacobian=pre_jac, grid_stride=stride,
+            )
+        else:
+            res, jac, valid = warp_residuals(
+                gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
+                grads[0], grads[1], grid_stride=stride,
+            )
+        return reduce_evaluation(res, jac, valid, weight_lambda)
 
-        return evaluate
+    # The mode is fixed for the level: the hard-motion path samples through
+    # the packed gather (with exact gradients where the level's Jacobian is
+    # the template's), built once.
+    mode, fb_prep = plan.default_mode, None
+    if need_fb:
+        mode = "packed_exact" if approx else "packed"
+        gfb = None
+        if approx:
+            gx2, gy2 = grad_ops.sobel(gray_curr)
+            gfb = interp_ops.pack_pair_f16(gx2 / sgain, gy2 / sgain)
+        fb_prep = (interp_ops.pack_neighbors(gray_curr), gfb)
 
-    def make_fb_prep():
-        """Gather-path inputs: the packed current image and its exact
-        gradients (the template Jacobian is wrong under large motion)."""
-        gx2, gy2 = grad_ops.sobel(gray_curr)
-        return (
-            interp_ops.pack_neighbors(gray_curr),
-            interp_ops.pack_pair_f16(gx2 / sgain, gy2 / sgain),
-        )
+    def evaluate(estimate, _anchor, weight_lambda):
+        return eval_mode(mode, estimate, weight_lambda, fb_prep)
 
     max_iter = cfg.max_iterations_for_level(level)
-    if need_fb:
-        evaluate = evaluate_fallback(make_fb_prep())
-        est, anchor, wlam, diag = _lm_loop(
-            evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
-        )
-    else:
-        wlam0 = torch.full(
-            (b,), 1.0 / (cfg.weighter.initial_sigma**2), dtype=torch.float32,
-            device=dev,
-        )
+    if plan.level_kernel and not need_fb:
         rel = (
             None if rel_eff is None
-            else torch.broadcast_to(torch.as_tensor(rel_eff, dtype=torch.float32, device=dev), (b,))
+            else torch.broadcast_to(
+                torch.as_tensor(rel_eff, dtype=torch.float32, device=dev), (b,)
+            )
         )
         est, anchor, wlam, err, count, its, level_in = solve_level_fused(
-            planes0, cu0, cv0, depth_prev_m, gray_prev, jac_planes, intrinsics,
-            estimate0, prior_anchor0, wlam0, rel,
+            fl.planes, fl.cu, fl.cv, depth_prev_m, gray_prev, jac_planes, intrinsics,
+            estimate0, prior_anchor0, wlam_init, rel,
             image_h=image_h, image_w=image_w, radius=radius,
             grid_stride=stride, dof=cfg.weighter.dof,
             unroll=cfg.weighter.unroll_iterations or 3,
@@ -581,30 +805,18 @@ def _solve_level(
             iterations=its, error=err, count=count,
             scale=torch.rsqrt(torch.clamp(wlam, min=1e-20)),
         )
-
+    elif cfg.lm_lambda0 is not None:
+        est, anchor, wlam, diag = _lm_loop(
+            evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
+        )
+    else:
+        est, anchor, wlam, diag = _gn_loop(
+            evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
+        )
     if not want_hessian:
         return est, diag, torch.zeros((b, 6, 6), dtype=torch.float32, device=dev)
-    if need_fb:
-        hess = evaluate(est, anchor, wlam)[4]
-    elif illum_affine:
-        # The "shift" evaluation: the fused kernel has no rank-2 Schur.
-        pre_jac = _shift_jacobian(fl, gray_prev_full, intrinsics, cfg, level)
-        res, jac, valid = warp_residuals_shift(
-            gray_prev, depth_prev_m, gray_curr, intrinsics, est,
-            precomputed_jacobian=pre_jac, grid_stride=stride, radius=radius,
-        )
-        hess = reduce_evaluation(res, jac, valid, wlam)[4]
-    else:
-        # One launch of the fused kernel on the level solve's own inputs.
-        hess = fused_shift_iteration(
-            level_in, est, wlam, radius=radius, grid_stride=stride,
-            image_h=image_h, image_w=image_w,
-            dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
-            use_tweights=cfg.use_weighter,
-            normalize_scale=cfg.weighter.normalize_scale,
-            illum_bias=illum_bias,
-        )[0]
-    return est, diag, hess
+    # The photometric Hessian at the returned estimate, re-evaluated once.
+    return est, diag, evaluate(est, anchor, wlam)[4]
 
 
 def _box2(x: torch.Tensor) -> torch.Tensor:
@@ -661,8 +873,8 @@ def track_pair(
         return camera.at(level).to(dev)
 
     if cfg.robust_init_selection and init_guess is not None:
-        # Score {guess, identity} at half the coarsest level's resolution
-        # through 2x2 box-filtered intensities; ties keep the guess.
+        # Score candidates at half the coarsest level's resolution through
+        # 2x2 box-filtered intensities.
         lvl = cfg.levels - 1
         gp_sel = _box2(prev.gray[lvl])
         hs, ws = gp_sel.shape[-2], gp_sel.shape[-1]
@@ -673,9 +885,30 @@ def track_pair(
             dtype=torch.float32, device=dev,
         )
         k_sel = half @ k_at(lvl)
-        err_guess = _initial_photometric_error(gp_sel, dp_sel, packed_sel, k_sel, estimate)
-        err_eye = _initial_photometric_error(gp_sel, dp_sel, packed_sel, k_sel, eye)
-        estimate = torch.where((err_eye < err_guess)[:, None, None], eye, estimate)
+
+        def score(candidate):
+            return _initial_photometric_error(gp_sel, dp_sel, packed_sel, k_sel, candidate)
+
+        if cfg.init_scale_ladder is not None:
+            # Candidates exp(a * log(guess)) along the constant-velocity
+            # screw; a=0 is the identity, a=1 the guess verbatim (the f32
+            # log/exp round trip is ill-conditioned near theta=pi).  The
+            # first minimum wins: scales ascend, so ties go to the smaller
+            # motion.
+            scales = sorted(set((0.0, 1.0) + tuple(cfg.init_scale_ladder)))
+            xi = se3.log(estimate)
+            cands = torch.stack([
+                estimate if a == 1.0
+                else se3.exp(torch.tensor(a, dtype=torch.float32, device=dev) * xi)
+                for a in scales
+            ])
+            errs = torch.stack([score(c) for c in cands])
+            best = torch.argmin(errs, dim=0)
+            estimate = cands[best, torch.arange(b, device=dev)]
+        else:
+            # Score {guess, identity}; ties keep the guess.
+            err_guess, err_eye = score(estimate), score(eye)
+            estimate = torch.where((err_eye < err_guess)[:, None, None], eye, estimate)
 
     est_init = estimate
 

@@ -739,6 +739,16 @@ class LevelInputs(NamedTuple):
     scal: torch.Tensor
 
 
+def with_window(
+    inputs: LevelInputs, planes: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor
+) -> LevelInputs:
+    """``inputs`` with another window: its planes and its centres (B,)."""
+    scal = inputs.scal.clone()
+    scal[:, 37] = cu.to(torch.float32)
+    scal[:, 38] = cv.to(torch.float32)
+    return inputs._replace(planes=planes, scal=scal)
+
+
 def solve_level_fused(
     planes: torch.Tensor,
     cu: torch.Tensor,

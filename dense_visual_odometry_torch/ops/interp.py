@@ -1,9 +1,10 @@
-"""Masked bilinear / nearest sampling through f16-packed planes.
+"""Masked bilinear sampling, plain and through f16-packed planes.
 
 Same semantics as ``dense_visual_odometry_tpu/ops/interp.py``: a sample at
 (u, v) is valid iff ``floor(u) >= 0``, ``floor(v) >= 0``,
 ``floor(u) + 1 <= W - 1`` and ``floor(v) + 1 <= H - 1``; invalid samples
-return 0.  Two f16 values share one int32 element (low half first), so a
+return 0.  :func:`bilinear_sample` reads four float32 taps.  In the packed
+planes two f16 values share one int32 element (low half first), so a
 bilinear sample reads two elements and a two-channel nearest sample one;
 the f16 rounding points and all-f32 arithmetic are the reference's.
 
@@ -45,6 +46,38 @@ def _gather(plane: torch.Tensor, index: torch.Tensor, shape) -> torch.Tensor:
     return torch.gather(flat, -1, index.reshape(index.shape[0], -1)).reshape(shape)
 
 
+def _bilinear_base(h: int, w: int, u: torch.Tensor, v: torch.Tensor):
+    """-> (valid, flat index of the top-left tap, wx, wy) of samples at
+    (u, v) in an (H, W) plane; the index is clamped so that it reads safely
+    where the sample is invalid."""
+    x0f = torch.floor(u)
+    y0f = torch.floor(v)
+    valid = (x0f >= 0) & (y0f >= 0) & (x0f + 1 <= w - 1) & (y0f + 1 <= h - 1)
+    x0c = torch.clamp(torch.nan_to_num(x0f), 0, w - 2).to(torch.int64)
+    y0c = torch.clamp(torch.nan_to_num(y0f), 0, h - 2).to(torch.int64)
+    return valid, y0c * w + x0c, u - x0f, v - y0f
+
+
+def _lerp2(valid, v00, v01, v10, v11, wx, wy) -> torch.Tensor:
+    """The reference's lerp order: along x on both rows, then along y."""
+    top = v00 + wx * (v01 - v00)
+    bot = v10 + wx * (v11 - v10)
+    values = top + wy * (bot - top)
+    return torch.where(valid, values, torch.zeros_like(values))
+
+
+def bilinear_sample(
+    image: torch.Tensor, u: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bilinear sample of image (B, H, W) at u, v (B, H', W'), four float32
+    taps -> (values, valid)."""
+    h, w = image.shape[-2], image.shape[-1]
+    valid, base, wx, wy = _bilinear_base(h, w, u, v)
+    img = image.to(torch.float32)
+    taps = [_gather(img, base + off, u.shape) for off in (0, 1, w, w + 1)]
+    return _lerp2(valid, *taps, wx, wy), valid
+
+
 def bilinear_sample_packed(
     packed_neighbors_plane: torch.Tensor, u: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -53,20 +86,10 @@ def bilinear_sample_packed(
     packed (B, H, W) int32; u, v (B, H', W') -> (values, valid).
     """
     h, w = packed_neighbors_plane.shape[-2], packed_neighbors_plane.shape[-1]
-    x0f = torch.floor(u)
-    y0f = torch.floor(v)
-    valid = (x0f >= 0) & (y0f >= 0) & (x0f + 1 <= w - 1) & (y0f + 1 <= h - 1)
-    x0c = torch.clamp(torch.nan_to_num(x0f), 0, w - 2).to(torch.int64)
-    y0c = torch.clamp(torch.nan_to_num(y0f), 0, h - 2).to(torch.int64)
-    wx = u - x0f
-    wy = v - y0f
-    base = y0c * w + x0c
+    valid, base, wx, wy = _bilinear_base(h, w, u, v)
     v00, v01 = unpack_pair_f16(_gather(packed_neighbors_plane, base, u.shape))
     v10, v11 = unpack_pair_f16(_gather(packed_neighbors_plane, base + w, u.shape))
-    top = v00 + wx * (v01 - v00)
-    bot = v10 + wx * (v11 - v10)
-    values = top + wy * (bot - top)
-    return torch.where(valid, values, torch.zeros_like(values)), valid
+    return _lerp2(valid, v00, v01, v10, v11, wx, wy), valid
 
 
 def nearest_sample_packed(

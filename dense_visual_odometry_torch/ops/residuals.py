@@ -1,7 +1,7 @@
 """Photometric residuals, the 6-DoF Jacobian and the normal equations.
 
-Counterpart of ``dense_visual_odometry_tpu/ops/residuals.py`` for the
-branches the shipped tiers run.  Every function takes batched tensors:
+Counterpart of ``dense_visual_odometry_tpu/ops/residuals.py`` without
+the depth term.  Every function takes batched tensors:
 images (B, H, W), intrinsics (3, 3) or (B, 3, 3), transforms (B, 4, 4).
 Jacobian convention: left-multiplicative update ``T <- exp(delta) @ T``,
 twist (upsilon, phi), warp Jacobian evaluated at the transformed point.
@@ -16,7 +16,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from dense_visual_odometry_torch.ops.cuda.stackwarp import shift_stack_sample_cuda
-from dense_visual_odometry_torch.ops.interp import nearest_sample_packed
+from dense_visual_odometry_torch.ops.interp import (
+    bilinear_sample,
+    bilinear_sample_packed,
+    nearest_sample_packed,
+)
 
 
 class ResidualSystem(NamedTuple):
@@ -107,6 +111,56 @@ def warp_geometry(depth_prev_m, intrinsics, transform, grid_stride=1):
     return pts_t, u, v, depth_valid & in_front
 
 
+def _residuals_and_jacobian(
+    gray_prev, intrinsics, pts_t, valid, warped, precomputed_jacobian, sample_grads,
+):
+    """The residuals of a warp sampled into ``warped`` and their Jacobian:
+    ``precomputed_jacobian`` (B, H', W', 6), or exact, from the current
+    image's gradients at the warp that ``sample_grads()`` returns.
+    -> (residuals, jacobian, valid), zero outside ``valid``."""
+    residuals = torch.where(valid, warped - gray_prev, torch.zeros_like(warped))
+    if precomputed_jacobian is not None:
+        jacobian = torch.where(
+            valid[..., None], precomputed_jacobian,
+            torch.zeros_like(precomputed_jacobian),
+        )
+    else:
+        gx, gy = sample_grads()
+        jacobian = warp_jacobian_times_grad(
+            pts_t, gx, gy, intrinsics[..., 0, 0], intrinsics[..., 1, 1], valid
+        )
+    return residuals, jacobian, valid
+
+
+def warp_residuals(
+    gray_prev: torch.Tensor,
+    depth_prev_m: torch.Tensor,
+    gray_curr: torch.Tensor,
+    intrinsics: torch.Tensor,
+    transform: torch.Tensor,
+    grad_x_curr: Optional[torch.Tensor] = None,
+    grad_y_curr: Optional[torch.Tensor] = None,
+    precomputed_jacobian: Optional[torch.Tensor] = None,
+    grid_stride: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Residuals + Jacobian with the current image sampled bilinearly.
+
+    The Jacobian is ``precomputed_jacobian`` (B, H', W', 6) or exact: the
+    current image's gradients ``grad_x_curr`` / ``grad_y_curr`` (B, H, W)
+    sampled bilinearly at the warp, times the warp Jacobian at the
+    transformed points.  -> (residuals, jacobian (B, H', W', 6), valid),
+    zero outside ``valid``.
+    """
+    pts_t, u, v, valid_geom = warp_geometry(
+        depth_prev_m, intrinsics, transform, grid_stride
+    )
+    warped, warp_ok = bilinear_sample(gray_curr, u, v)
+    return _residuals_and_jacobian(
+        gray_prev, intrinsics, pts_t, valid_geom & warp_ok, warped, precomputed_jacobian,
+        lambda: (bilinear_sample(grad_x_curr, u, v)[0], bilinear_sample(grad_y_curr, u, v)[0]),
+    )
+
+
 def warp_residuals_packed(
     gray_prev: torch.Tensor,
     depth_prev_m: torch.Tensor,
@@ -125,28 +179,14 @@ def warp_residuals_packed(
     nearest at the warp.  -> (residuals, jacobian (B, H', W', 6), valid),
     zero outside ``valid``.
     """
-    from dense_visual_odometry_torch.ops.interp import (
-        bilinear_sample_packed,
-        nearest_sample_packed,
-    )
-
     pts_t, u, v, valid_geom = warp_geometry(
         depth_prev_m, intrinsics, transform, grid_stride
     )
     warped, warp_ok = bilinear_sample_packed(gray_curr_packed, u, v)
-    valid = valid_geom & warp_ok
-    residuals = torch.where(valid, warped - gray_prev, torch.zeros_like(warped))
-    if precomputed_jacobian is not None:
-        jacobian = torch.where(
-            valid[..., None], precomputed_jacobian,
-            torch.zeros_like(precomputed_jacobian),
-        )
-    else:
-        gx, gy, _ = nearest_sample_packed(grads_packed, u, v)
-        jacobian = warp_jacobian_times_grad(
-            pts_t, gx, gy, intrinsics[..., 0, 0], intrinsics[..., 1, 1], valid
-        )
-    return residuals, jacobian, valid
+    return _residuals_and_jacobian(
+        gray_prev, intrinsics, pts_t, valid_geom & warp_ok, warped, precomputed_jacobian,
+        lambda: nearest_sample_packed(grads_packed, u, v)[:2],
+    )
 
 
 def warp_residuals_shift(
@@ -177,19 +217,10 @@ def warp_residuals_shift(
     warped, warp_ok = shift_stack_sample_cuda(
         gray_curr, u, v, radius, grid_stride, valid_geom
     )
-    valid = valid_geom & warp_ok
-    residuals = torch.where(valid, warped - gray_prev, torch.zeros_like(warped))
-    if precomputed_jacobian is not None:
-        jacobian = torch.where(
-            valid[..., None], precomputed_jacobian,
-            torch.zeros_like(precomputed_jacobian),
-        )
-    else:
-        gx, gy, _ = nearest_sample_packed(grads_packed, u, v)
-        jacobian = warp_jacobian_times_grad(
-            pts_t, gx, gy, intrinsics[..., 0, 0], intrinsics[..., 1, 1], valid
-        )
-    return residuals, jacobian, valid
+    return _residuals_and_jacobian(
+        gray_prev, intrinsics, pts_t, valid_geom & warp_ok, warped, precomputed_jacobian,
+        lambda: nearest_sample_packed(grads_packed, u, v)[:2],
+    )
 
 
 def approximate_jacobian_planes(
@@ -214,6 +245,23 @@ def approximate_jacobian_planes(
         dim=-3,
     )
     return torch.where(valid[..., None, :, :], jac, torch.zeros_like(jac))
+
+
+def approximate_jacobian(
+    depth_prev_m: torch.Tensor,
+    intrinsics: torch.Tensor,
+    grad_x_prev: torch.Tensor,
+    grad_y_prev: torch.Tensor,
+    grid_stride: int = 1,
+) -> torch.Tensor:
+    """:func:`approximate_jacobian_planes` in the trailing layout
+    (B, H', W', 6).  The JAX package builds it at full resolution and
+    strides it; its terms are elementwise and the strided grid deprojects
+    to the same floats, so building it on the strided grid gives the same
+    values (``tests/test_torch_warp_residuals.py``)."""
+    return approximate_jacobian_planes(
+        depth_prev_m, intrinsics, grad_x_prev, grad_y_prev, grid_stride
+    ).permute(0, 2, 3, 1).contiguous()
 
 
 def normal_equations(residuals, jacobian, weights, valid) -> ResidualSystem:

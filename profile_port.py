@@ -5,14 +5,16 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 
     python3 profile_port.py [CONFIG ...]
     python3 profile_port.py --kernels
+    python3 profile_port.py --wall [CONFIG ...]
 
-CONFIG is ``tpu_fast`` (the default), ``tpu_parity`` or one of
-``chip_smoke.VARIANTS`` (``parity_affine``, ``parity_esm``).  Builds the
-kernels, then profiles, over the seeded 640x480 scene of ``chip_smoke.py``,
-``batched_track_pair`` at B=64 over all 15 consecutive pairs and over the
-pairs that the configuration's hard-motion trigger passes at every level
-(``chip_smoke.kernel_path_pairs``), and for ``tpu_fast`` the 16-frame
-``OdometrySession`` (B=1).  Each run is done once unprofiled as a warm-up.
+CONFIG is ``tpu_fast`` (the default), any other name under ``configs/``, or
+one of ``chip_smoke.VARIANTS`` (``parity_affine``, ``parity_esm``,
+``accurate_lm``).  Builds the kernels, then profiles, over the seeded
+640x480 scene of ``chip_smoke.py``, ``batched_track_pair`` at B=64 over all
+15 consecutive pairs and, where the configuration has level-kernel levels,
+over the pairs that its hard-motion trigger passes at each of them
+(``chip_smoke.kernel_path_pairs``), and for the configurations of
+``chip_smoke.SESSIONS`` the 16-frame ``OdometrySession`` (B=1).  Each run is done once unprofiled as a warm-up.
 Prints one JSON line per run: wall time, device kernel time and its share
 of the wall time, the number of device kernels the run launched and how
 many of each name, the kernels that took the most device time, the device
@@ -34,6 +36,12 @@ displacements (``fused_iteration``, before the kernel warped the template
 points itself) gets the displacements and validity of the same pose:
 
     PYTHONPATH=out/parent python3 -P profile_port.py --kernels
+
+``--wall`` runs no profiler: for each configuration it times the batched
+runs (``WALL_REPS`` calls each, after a warm-up) and ``WALL_SESSIONS``
+sessions host to host with ``chip_smoke.run_batched`` and
+``chip_smoke.run_session``, on the imported package too, so that parent and
+change can be alternated in one call.
 """
 
 from __future__ import annotations
@@ -162,6 +170,33 @@ def kernel_times(frames, poses, cam, dev) -> None:
             }), flush=True)
 
 
+WALL_REPS = 10  # timed calls of each batched run under --wall
+WALL_SESSIONS = 3  # sessions of 16 frames under --wall
+
+
+def wall_times(configs, frames, grays, depths, poses, cam, dev) -> None:
+    """``--wall``: unprofiled host-to-host times of the main path's runs,
+    with ``chip_smoke``'s own timers, one JSON line each."""
+    k_dev = cam.intrinsics.to(dev)
+    pairs = [(i, i + 1) for i in range(cs.N_FRAMES - 1)]
+    for config in configs:
+        cfg = cs.config(config)
+        runs = [("batched_b64_all_pairs", pairs)]
+        if cs.kernel_levels(cfg):
+            runs.append(("batched_b64_kernel_path", cs.kernel_path_pairs(frames, k_dev, cfg, pairs)))
+        for name, sel in runs:
+            row, _ = cs.run_batched(frames, poses, k_dev, cfg, sel, reps=WALL_REPS)
+            print(json.dumps({"config": config, "run": name, "pairs": sel,
+                              "frames_per_s": row["frames_per_s"],
+                              "batch_ms": row["batch_ms"]}), flush=True)
+        if config in cs.SESSIONS:
+            rows = [cs.run_session(grays, depths, cam, cfg, poses, dev)
+                    for _ in range(WALL_SESSIONS)]
+            print(json.dumps({"config": config, "run": "session_b1_16_frames",
+                              "median_frame_ms": [r["median_frame_ms"] for r in rows],
+                              "frame_ms": [r["frame_ms"] for r in rows]}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: needs a CUDA GPU", file=sys.stderr)
@@ -184,14 +219,14 @@ def main() -> int:
     if sys.argv[1:] == ["--kernels"]:
         kernel_times(frames, poses, cam, dev)
         return 0
+    if sys.argv[1:2] == ["--wall"]:
+        wall_times(sys.argv[2:] or ["tpu_fast"], frames, grays, depths, poses, cam, dev)
+        return 0
     k_dev = cam.intrinsics.to(dev)
     pairs = [(i, i + 1) for i in range(cs.N_FRAMES - 1)]
     for config in sys.argv[1:] or ["tpu_fast"]:
-        if config in cs.VARIANTS:
-            cfg = cs.variant_config(config)
-        else:
-            cfg = cs.RobustDVOConfig.from_json(cs.CONFIGS / f"{config}.json")
-        easy = cs.kernel_path_pairs(frames, k_dev, cfg, pairs)
+        cfg = cs.config(config)
+        easy = cs.kernel_path_pairs(frames, k_dev, cfg, pairs) if cs.kernel_levels(cfg) else []
 
         def session():
             s = OdometrySession(cam, cfg, device=dev)
@@ -203,9 +238,10 @@ def main() -> int:
             curr = stack_frame_data([frames[j] for _, j in rows])
             return lambda: batched_track_pair(prev, curr, k_dev, cfg).transform.cpu()
 
-        runs = [("batched_b64_all_pairs", batched(pairs)),
-                ("batched_b64_kernel_path", batched(easy))]
-        if config == "tpu_fast":
+        runs = [("batched_b64_all_pairs", batched(pairs))]
+        if easy:
+            runs.append(("batched_b64_kernel_path", batched(easy)))
+        if config in cs.SESSIONS:
             runs.insert(0, ("session_b1_16_frames", session))
         for name, fn in runs:
             out = {"config": config, **breakdown(name, fn)}

@@ -80,6 +80,10 @@ def test_entry_points_default_to_the_gpu():
     _no_gpu()
     from dense_visual_odometry_torch.camera import CameraModel
     from dense_visual_odometry_torch.config import RobustDVOConfig
+    from dense_visual_odometry_torch.models.batched_session import (
+        BatchedOdometrySession,
+        init_batched_state,
+    )
     from dense_visual_odometry_torch.models.robust import preprocess_frame
     from dense_visual_odometry_torch.models.session import OdometrySession, init_state
 
@@ -91,6 +95,10 @@ def test_entry_points_default_to_the_gpu():
                          cam, levels=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_state(8, 8, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchedOdometrySession(cam)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_batched_state(2, 8, 8, 2)
     # Asked for explicitly, the CPU runs the plain versions.
     OdometrySession(cam, device="cpu")
 

@@ -169,7 +169,10 @@ def test_shift_jacobian_matches_jax(case, esm):
         "esm_levels": [0], "grid_strides": [s, 2, 1, 1],
     })
     fl = trobust.frozen_level(gp, dp, case["gray_curr"], k, case["transform"], cfg, 0)
-    jac = trobust._shift_jacobian(fl, gp, k, cfg, 0)
+    g1x_s, g1y_s = trobust._template_gradients(
+        gp, dp, case["gray_curr"], k, case["transform"], cfg, 0
+    )
+    jac = tres.approximate_jacobian(fl.depth_prev_m, k, g1x_s, g1y_s, s)
     sgain = trobust._SOBEL_GAIN
     gx1, gy1 = tgrad.sobel(gp)
     j_jac = jres.approximate_jacobian(

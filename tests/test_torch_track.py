@@ -171,22 +171,58 @@ def test_track_pair_matches_jax(scene, fast_tier, batch, monkeypatch):
     check_track_pair(scene, tcfg, ref[batch], batch, monkeypatch)
 
 
+def _blank_frames():
+    return trobust.FrameData(
+        gray=tuple(torch.zeros(1, 32 >> lv, 32 >> lv) for lv in range(4)),
+        depth_m=tuple(torch.zeros(1, 32 >> lv, 32 >> lv) for lv in range(4)),
+    )
+
+
 @pytest.mark.parametrize(
     "change",
     [
-        {"sigma": 1.0}, {"use_depth_residuals": True}, {"init_scale_ladder": (0.5,)},
-        {"recenter_blocks": 2}, {"lm_lambda0": None}, {"grid_strides": (3, 2, 1, 1)},
-        {"use_fused_iteration": False}, {"shift_stack_levels": (0, 1)},
+        {"sigma": 1.0}, {"use_depth_residuals": True}, {"recenter_blocks": 2},
+        {"grid_strides": (3, 2, 1, 1)},
     ],
     ids=lambda d: next(iter(d)),
 )
 def test_unported_branches_raise(change):
-    """Branches the shipped tiers never take raise, naming the ROADMAP item."""
+    """Branches no shipped configuration takes raise, naming port queue item 1."""
     base = TConfig.from_json(CONFIGS / "tpu_fast.json").__dict__
-    frames = trobust.FrameData(
-        gray=tuple(torch.zeros(1, 8 >> lv, 8 >> lv) for lv in range(4)),
-        depth_m=tuple(torch.zeros(1, 8 >> lv, 8 >> lv) for lv in range(4)),
-    )
     cfg = TConfig(**{**base, **change})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    frames = _blank_frames()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue item 1"):
         trobust.track_pair(frames, frames, TCamera.create(np.eye(3), 1.0), cfg)
+
+
+@pytest.mark.parametrize("config_class", [JConfig, TConfig], ids=["jax", "port"])
+def test_esm_on_an_unfrozen_fused_level_is_refused(config_class):
+    """ESM gradients at a "fused" level are averaged into the frozen
+    window's Jacobian planes: without ``freeze_shift_window`` both packages'
+    configurations refuse them, so the tracker never meets that case."""
+    data = {**json.loads((CONFIGS / "tpu_fast.json").read_text()),
+            "use_esm_gradients": True, "freeze_shift_window": False}
+    with pytest.raises(ValueError, match="requires freeze_shift_window"):
+        config_class.from_dict(data)
+
+
+@pytest.mark.parametrize(
+    "change",
+    [
+        {"init_scale_ladder": (0.5,)}, {"lm_lambda0": None},
+        {"use_fused_iteration": False}, {"shift_stack_levels": (0, 1)},
+        {"shift_stack_levels": (0, 1, 2), "grid_strides": (2, 2, 1, 3)},
+    ],
+    ids=lambda d: "_".join(d),
+)
+def test_ported_branches_run(change):
+    """Branches ported since the first slice run, on frames without valid
+    depth (every element fails, nothing raises); a stride other than 1 or 2
+    is taken at a level off the kernels."""
+    base = TConfig.from_json(CONFIGS / "tpu_fast.json").__dict__
+    cfg = TConfig(**{**base, **change})
+    frames = _blank_frames()
+    res = trobust.track_pair(
+        frames, frames, TCamera.create(np.eye(3), 1.0), cfg, init_guess=torch.eye(4)
+    )
+    assert res.transform.shape == (1, 4, 4) and not bool(res.success[0])
