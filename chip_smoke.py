@@ -18,7 +18,11 @@ Phases, each printing one JSON line:
    bias and with affine gain + bias, under both stopping rules, and with
    the depth term (without illumination and with the bias) and the motion
    prior (both energy forms, ``PRIOR_SIGMA``, toward the previous pair's
-   true motion; each reports how far the prior moves the solve), each with
+   true motion; each reports how far the prior moves the solve), and the
+   row-block and tile variants (``BLOCK_CASES``: ``fast_blocks_ry2``'s 6 row
+   blocks with the vertical radius 2, ``parity_tiles_r2``'s and
+   ``slam_tiles_cb48``'s 8 x 10 tiles, without illumination, with the bias
+   and, on tiles, with the depth term), each with
    the launch geometry it chose (cluster size, pixels per CTA, shared bytes,
    resident or streamed inputs, the clusters the card holds at once); the
    fused kernel at level 0 and at levels 1 and 2 of ``tpu_accurate``
@@ -41,23 +45,27 @@ Phases, each printing one JSON line:
    ``configs/reference_default.json`` (the Gauss-Newton loop on the "plain"
    evaluation), ``tpu_fast`` with the motion prior (``fast_prior``: each
    pair anchored at the previous pair's true motion) and with the depth term
-   (``fast_depth``), each over all 15 pairs and, but for ``tpu_parity`` and
+   (``fast_depth``), with row blocks and the vertical radius 2
+   (``fast_blocks_ry2``), ``tpu_parity`` with 8 x 10 tiles at radius 2
+   (``parity_tiles_r2``) and ``tpu_slam`` with 8 x 10 tiles
+   (``slam_tiles_cb48``), each over all 15 pairs and, but for ``tpu_parity`` and
    ``reference_default``, over the pairs that stay on the level kernel at
    every level that has it; ``accurate_lm`` (``tpu_accurate`` with the level
    kernel off: one fused launch per LM iteration) over the kernel-path pairs
    of ``tpu_accurate``; a 16-frame ``OdometrySession`` on ``tpu_fast``, the
    two parity variants, ``tpu_accurate``, ``reference_default``,
-   ``fast_prior`` and ``fast_depth``; and a 16-frame
+   ``fast_prior``, ``fast_depth`` and ``slam_tiles_cb48``; and a 16-frame
    ``BatchedOdometrySession`` of 8 streams on ``tpu_accurate``, over a seeded
    synthetic 640x480 scene with exact ground truth; the kernels' launch counts
-   are zeroed just before this phase and read just after it; two pairs of each
+   (and the level kernel's row-block and tile launches among them) are
+   zeroed just before this phase and read just after it; two pairs of each
    configuration, and of ``reference_prior`` (``reference_default`` with the
    reference oracle's binding prior), are cross-checked against the port's
    CPU plain path.
 
 Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers (the
-level kernel's row with a ``variants`` entry for its depth and prior
-variants), and last ``{"ok": true, "device": {...}}``.  A failed check raises and exits
+level kernel's row with a ``variants`` entry for its depth, prior, row-block
+and tile variants), and last ``{"ok": true, "device": {...}}``.  A failed check raises and exits
 non-zero before that line; without a GPU the script exits non-zero at once.
 """
 
@@ -141,6 +149,12 @@ PRIOR_SIGMA = 2e-7
 # tolerance.
 TERM_CASES = (("depth", None, 0.01), ("depth", "bias", 0.01), ("prior", None, None),
               ("prior_reference", None, None))
+# The level kernel's row-block and tile variants in phase 3: (configuration
+# of VARIANTS, illumination, term), each at its configuration's stopping
+# rule.
+BLOCK_CASES = (("fast_blocks_ry2", None, None), ("fast_blocks_ry2", "bias", None),
+               ("parity_tiles_r2", None, None), ("parity_tiles_r2", "bias", None),
+               ("slam_tiles_cb48", None, "depth"))
 
 # Kernel against plain version: same inputs, same arithmetic; the level and
 # fused kernels' sums are float64 on both sides (level_agrees,
@@ -151,17 +165,22 @@ TERM_CASES = (("depth", None, 0.01), ("depth", "bias", 0.01), ("prior", None, No
 TOLERANCES = {"pose_atol": 1e-4, "sum_rtol": 1e-4, "scale_rtol": 1e-3,
               "sample_rtol": 1e-5}
 # Up to B=8 every level-kernel case must equal its plain version bit for bit,
-# but these (level, batch, illumination, term), which part in the last bits
-# on the smoke's data and are held to TOLERANCES instead.  Float64 does not
-# add every sum exactly (the depth term's span too many binades), and there
-# one float64 total, which the kernel and the plain version add in
-# different orders, rounds to float32 the other way: at the first
-# iteration where they part, the plain version with exact sums equals the
-# plain version's row and not the kernel's (``profile_port.py --bits``).  In
-# the reference-energy prior case it is a photometric t-scale total, not the
-# prior.
+# but these, which part in the last bits on the smoke's data and are held to
+# TOLERANCES instead: tpu_fast's (level, batch, illumination, term) and the
+# block and tile cases' (configuration, level, batch, illumination, term).
+# Float64 does not add every sum exactly (the depth term's span too many
+# binades), and there one float64 total, which the kernel and the plain
+# version add in different orders, rounds to float32 the other way: at the
+# first iteration where they part, the plain version with exact sums equals
+# the plain version's row and not the kernel's (``profile_port.py --bits``;
+# with the depth term neither side's sums are exact, and the two part on one
+# element).  In the reference-energy prior case and the two parity_tiles_r2
+# cases it is a photometric total (the t-scale lambda and the error), not
+# the prior or the tiles.
 LAST_BIT_CASES = {(0, 8, None, "depth"), (3, 1, "bias", "depth"), (3, 8, "bias", "depth"),
-                  (0, 8, None, "prior_reference")}
+                  (0, 8, None, "prior_reference"),
+                  ("parity_tiles_r2", 0, 8, None, None), ("parity_tiles_r2", 0, 8, "bias", None),
+                  ("slam_tiles_cb48", 0, 8, None, "depth")}
 # Tracking-error bounds of the main path (per pair: median and largest
 # translation error, largest rotation error; drift over a 16-frame
 # session).  By default several times what the JAX package and the port's
@@ -190,6 +209,16 @@ VARIANTS = {
     "accurate_lm": ("tpu_accurate", {"use_level_kernel": False}),
     "fast_prior": ("tpu_fast", {"sigma": PRIOR_SIGMA}),
     "fast_depth": ("tpu_fast", {"use_depth_residuals": True}),
+    # Row blocks with a smaller vertical radius (benchmarks/exp_blocks.py:105).
+    "fast_blocks_ry2": ("tpu_fast", {"recenter_blocks": 6, "shift_stack_radius_y": 2}),
+    # The parity tier's accuracy-max variant (benchmarks/RESULTS.md:1023).
+    "parity_tiles_r2": ("tpu_parity", {"recenter_blocks": 8, "recenter_col_blocks": 10,
+                                       "shift_stack_radius": 2}),
+    # Tiles keep SLAM keyframe solves on the level kernel
+    # (benchmarks/exp_slampareto.py:140-143).
+    "slam_tiles_cb48": ("tpu_slam", {"recenter_blocks": 8, "recenter_col_blocks": 10,
+                                     "fallback_max_rotation": 0.25,
+                                     "recenter_center_bound": 48}),
 }
 # Cross-checked against the CPU only: reference_default with the binding
 # prior of the reference oracle's ``approx_prior`` case
@@ -198,7 +227,7 @@ CROSS_ONLY = {"reference_prior": ("reference_default", {"sigma": 1e-9,
                                                          "reference_prior_energy": True})}
 PRIOR_CONFIGS = ("fast_prior", "reference_prior")  # anchored at the previous motion
 SESSIONS = ("tpu_fast", "parity_affine", "parity_esm", "tpu_accurate", "reference_default",
-            "fast_prior", "fast_depth")
+            "fast_prior", "fast_depth", "slam_tiles_cb48")
 # The Gauss-Newton loop (lm_lambda0 unset).
 GN_CONFIGS = ("reference_default", "reference_prior")
 STREAMS = 8  # streams of the batched session
@@ -404,12 +433,13 @@ def start_estimates(gt: torch.Tensor, level: int) -> torch.Tensor:
 def level_case(prev, curr, gt, cam, dev, level, illum, rel, cfg_name="tpu_fast", term=None,
                anchors=None):
     """The level kernel's inputs at one level of the batch, from the
-    level-start estimates, under ``configs/<cfg_name>.json``: -> (args,
-    kwargs) of ``lm_level``.  ``term``: "depth" adds the depth term's
-    inputs at the configuration's weight and threshold; "prior" and
-    "prior_reference" the motion prior (``PRIOR_SIGMA``, the consistent or
-    the reference's energy) toward ``anchors`` (B, 4, 4)."""
-    cfg = RobustDVOConfig.from_json(CONFIGS / f"{cfg_name}.json")
+    level-start estimates, under the configuration ``cfg_name`` (with its
+    row blocks or tiles, one window each): -> (args, kwargs) of
+    ``lm_level``.  ``term``: "depth" adds the depth term's inputs at the
+    configuration's weight and threshold; "prior" and "prior_reference" the
+    motion prior (``PRIOR_SIGMA``, the consistent or the reference's energy)
+    toward ``anchors`` (B, 4, 4)."""
+    cfg = config(cfg_name)
     s = cfg.stride_for_level(level)
     k = cam.at(level).to(dev)
     est0 = start_estimates(gt, level)
@@ -433,6 +463,8 @@ def level_case(prev, curr, gt, cam, dev, level, illum, rel, cfg_name="tpu_fast",
         max_iterations=cfg.max_iterations_for_level(level),
         illum_bias=illum == "bias", illum_affine=illum == "affine",
     )
+    if hasattr(robust, "block_args"):  # a package older than row blocks has none
+        kwargs.update(robust.block_args(cfg, robust.level_plan(cfg, level)))
     if depth:
         gzx, gzy = sobel(prev.depth_m[level])
         kwargs.update(
@@ -510,17 +542,26 @@ def check_level_geometries(prev, curr, gt, cam, dev, level):
             "ok": all(r["ok"] for r in runs), "runs": runs}
 
 
-def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel, term=None, anchors=None):
-    """The level kernel against its plain version on one case (``term`` and
-    ``anchors``: as ``level_case``); with the prior, also how far it moves
-    the kernel's solve from the same case without it."""
-    args, kwargs = level_case(prev, curr, gt, cam, dev, level, illum, rel, term=term,
+def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel, term=None, anchors=None,
+                       cfg_name="tpu_fast"):
+    """The level kernel against its plain version on one case (``term``,
+    ``anchors`` and ``cfg_name``: as ``level_case``); with the prior, also
+    how far it moves the kernel's solve from the same case without it."""
+    args, kwargs = level_case(prev, curr, gt, cam, dev, level, illum, rel, cfg_name, term=term,
                               anchors=anchors)
     points = args[1]
     b, s = points.shape[0], kwargs["grid_stride"]
     depth = term == "depth"
+    # Imported here, so that profile_port.py can load this file on a
+    # checkout older than row blocks.
+    from dense_visual_odometry_torch.ops.shiftwarp import window_layout
+
+    layout = window_layout(points.shape[-2], points.shape[-1], kwargs["radius"], s,
+                           kwargs.get("n_blocks", 1), kwargs.get("n_blocks_x", 1),
+                           kwargs.get("radius_y"))
     geo = level_solver.launch_geometry(points, s, kwargs["illum_bias"], kwargs["illum_affine"],
-                                       depth=depth)
+                                       depth=depth,
+                                       centres=level_solver.centre_floats(layout))
     out_k = lm_level(*args, **kwargs)
     repeats = bit_equal(out_k, lm_level(*args, **kwargs))
     out_p = lm_level_plain(*args, **kwargs)
@@ -528,7 +569,10 @@ def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel, term=None, a
     ok, errs, differing = level_agrees(out_k, out_p)
     bit_equal_plain = bit_equal(out_k, out_p)
     ok = ok and repeats
-    if b <= STRICT_MAX_BATCH and (level, b, illum, term) not in LAST_BIT_CASES:
+    key = (level, b, illum, term)
+    if cfg_name != "tpu_fast":
+        key = (cfg_name, *key)
+    if b <= STRICT_MAX_BATCH and key not in LAST_BIT_CASES:
         ok = ok and bit_equal_plain
     extra = {}
     if term in ("prior", "prior_reference"):
@@ -554,9 +598,11 @@ def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel, term=None, a
         (out_k[:, 36].double() * (npx * OPS_WARP + out_k[:, 35].double() * per_valid)).sum()
     )
     return {
-        "phase": "kernel", "kernel": "level_solver", "level": level, "grid_stride": s,
-        "batch": b, "shape": list(args[2].shape), "illumination": illum, "rel": rel,
-        "term": term, **extra,
+        "phase": "kernel", "kernel": "level_solver", "config": cfg_name, "level": level,
+        "grid_stride": s, "batch": b, "shape": list(args[2].shape), "illumination": illum,
+        "rel": rel, "term": term, **extra,
+        "blocks": {"rows": layout.nby, "cols": layout.nbx, "block": [layout.t_y, layout.t_x],
+                   "window": [layout.ph, layout.pw], "radius": [layout.radius, layout.radius_y]},
         "bit_equal_plain": bit_equal_plain,
         "geometry": {"cluster": geo.cluster, "pixels_per_cta": geo.band_pixels,
                      "shared_bytes": geo.shared_bytes,
@@ -884,6 +930,11 @@ def kernel_checks(frames, poses, cam, dev) -> list:
                 checks.append(check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel,
                                                  term, anchors))
                 emit(checks[-1])
+            for cfg_name, illum, term in BLOCK_CASES:
+                rel = config(cfg_name).relative_tolerance
+                checks.append(check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel,
+                                                 term, cfg_name=cfg_name))
+                emit(checks[-1])
             checks.append(check_stack_kernel(prev, curr, gt, cam, dev, level))
             emit(checks[-1])
         for level, cfg_name in FUSED_LEVELS:
@@ -936,6 +987,8 @@ def run(dev: torch.device, smi: str) -> list:
 
     # Phase 4: the main path, with the launch counts zeroed just before it.
     lm_level.launches = 0
+    lm_level.block_launches = 0
+    lm_level.tile_launches = 0
     fused_iter.fused_evaluation.launches = 0
     stack_accumulate.launches = 0
     main = {"phase": "main_path", "image": [HEIGHT, WIDTH], "pairs": len(pairs),
@@ -974,9 +1027,15 @@ def run(dev: torch.device, smi: str) -> list:
                 "fused_iter": fused_iter.fused_evaluation.launches,
                 "stackwarp": stack_accumulate.launches}
     main["launches"] = launches
+    # Of the level kernel's launches, those on row blocks and on tiles.
+    block_launches = {"blocks": lm_level.block_launches, "tiles": lm_level.tile_launches}
+    main["level_solver_launches"] = block_launches
     emit(main)
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if min(block_launches.values()) < 1:
+        raise AssertionError(f"the level kernel never launched on blocks or tiles: "
+                             f"{block_launches}")
     # The level kernel's depth and prior variants ran on the main path.
     if min(variant_launches["fast_depth"], variant_launches["fast_prior"]) < 1:
         raise AssertionError(f"a variant of the level kernel never launched: {variant_launches}")
@@ -1052,12 +1111,13 @@ def run(dev: torch.device, smi: str) -> list:
             "card": smi,
         }
 
-    def level_check(term, rel):
+    def level_check(term, rel, cfg_name="tpu_fast"):
         return next(c for c in checks if c["kernel"] == "level_solver" and c["level"] == 0
                     and c["batch"] == SUMMARY_BATCH and c["illumination"] is None
-                    and c["rel"] == rel and c["term"] == term)
+                    and c["rel"] == rel and c["term"] == term and c["config"] == cfg_name)
 
     level0 = level_check(None, 0.01)
+    single = [c for c in checks if c["kernel"] == "level_solver" and c["config"] == "tpu_fast"]
     fused0 = next(c for c in checks if c["kernel"] == "fused_iter" and c["level"] == 0
                   and c["illumination"] is None and c["batch"] == SUMMARY_BATCH)
     stack0 = next(c for c in checks if c["kernel"] == "stackwarp" and c["level"] == 0
@@ -1068,10 +1128,26 @@ def run(dev: torch.device, smi: str) -> list:
     variants = {}
     for term, config_name, rel in (("depth", "fast_depth", 0.01), ("prior", "fast_prior", None)):
         check = level_check(term, rel)
-        errs = [c["errors"][f] for c in checks if c["kernel"] == "level_solver"
-                and (c["term"] or "").startswith(term) for f in ("est", "anchor")]
+        errs = [c["errors"][f] for c in single
+                if (c["term"] or "").startswith(term) for f in ("est", "anchor")]
         variants[term] = {
             "launches": variant_launches[config_name],
+            "max_abs_err": max(e["max_abs"] for e in errs),
+            "max_rel_err": max(e["max_rel"] for e in errs),
+            "ms": check["ms"], "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
+            "bound_by": check["bound_by"], "library_ms": None, "shape": check["shape"],
+        }
+    # The row-block and tile variants: level 0 at B=8 of fast_blocks_ry2 and
+    # parity_tiles_r2 without illumination, their errors over every case of
+    # their layout, their launches on the main path.
+    for kind, config_name, rel in (("blocks", "fast_blocks_ry2", 0.01),
+                                   ("tiles", "parity_tiles_r2", None)):
+        check = level_check(None, rel, config_name)
+        errs = [c["errors"][f] for c in checks if c["kernel"] == "level_solver"
+                and (c["blocks"]["cols"] > 1) == (kind == "tiles") and c["config"] != "tpu_fast"
+                for f in ("est", "anchor")]
+        variants[kind] = {
+            "launches": block_launches[kind],
             "max_abs_err": max(e["max_abs"] for e in errs),
             "max_rel_err": max(e["max_rel"] for e in errs),
             "ms": check["ms"], "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],

@@ -7,21 +7,26 @@ the branches from the configuration and the level), the solver:
 
 - builds the level's estimate-independent inputs: at a frozen-window level
   (``freeze_shift_window`` on the fused path) the window of the current
-  image, extracted once around an integer centre per element, and the
+  image, extracted once around an integer centre per element (or, on a
+  level-kernel level without ESM, one per row block or 2-D tile,
+  ``recenter_blocks`` / ``recenter_col_blocks``, with the vertical radius
+  ``shift_stack_radius_y``: ``ops/blockwarp.py``), and the
   Jacobian planes, ESM-averaged through one pass of the stack kernel
   (``ops/cuda/stackwarp.py``); elsewhere the template's Jacobian (ESM
   averaged with the current image's gradients sampled nearest at the
   level-start warp) or, with exact gradients, the current image's Sobel
   gradients;
 - evaluates the hard-motion trigger at the level's starting estimate
-  (shift-ball coverage; with the template's Jacobian also the rotation
+  (shift-ball coverage of the centres the level will use, one, per block
+  or per tile; with the template's Jacobian also the rotation
   angle and, at the coarsest level, the RMS displacement).  The predicate
   is batch-global and fixed for the level: if any element is hard, the
   whole batch evaluates on the packed gather path ("packed_exact" with the
   current image's exact gradients, or "packed");
 - else evaluates in the level's mode: "fused" (one launch of the fused
   kernel, ``ops/cuda/fused_iter.py``, on the frozen window or on one
-  recentred at the evaluated estimate), "shift" (the stack kernel),
+  recentred at the evaluated estimate, as at a level of blocks or tiles,
+  whose frozen windows only the level kernel reads), "shift" (the stack kernel),
   "packed" (the f16-packed gather) or "plain" (bilinear sampling, exact or
   precomputed Jacobian);
 - adds to every evaluation the depth term (``use_depth_residuals``: the
@@ -46,9 +51,8 @@ retrack) reads device values on the host, as ``lax.cond`` /
 ``lax.while_loop`` did inside the JAX program.
 
 Still refused, with ``NotImplementedError`` naming ROADMAP.md's port queue
-item 1: row-block and tile recentering, the anisotropic ball
-(``shift_stack_radius_y``), and grid strides other than 1 and 2 at the
-levels that reach a kernel.  ESM gradients on the fused path without
+item 1: grid strides other than 1 and 2 at the levels that reach a kernel.
+ESM gradients on the fused path without
 ``freeze_shift_window`` never get here: the configuration refuses them, as
 the JAX package's does.
 """
@@ -69,6 +73,14 @@ from dense_visual_odometry_torch.models.weighting import (
 from dense_visual_odometry_torch.ops import gradients as grad_ops
 from dense_visual_odometry_torch.ops import interp as interp_ops
 from dense_visual_odometry_torch.ops import pyramid as pyr_ops
+from dense_visual_odometry_torch.ops.blockwarp import (
+    compute_recenter_blocks,
+    compute_recenter_tiles,
+    extract_parity_planes_blocks,
+    extract_parity_planes_tiles,
+    shift_coverage_blocks,
+    shift_coverage_tiles,
+)
 from dense_visual_odometry_torch.ops.cuda import stackwarp
 from dense_visual_odometry_torch.ops.cuda.fused_iter import fused_shift_iteration
 from dense_visual_odometry_torch.ops.cuda.level_solver import (
@@ -198,22 +210,16 @@ def frame_data_from_numpy(frame, device) -> FrameData:
 
 def _check_ported(cfg: RobustDVOConfig) -> None:
     """Raise for configurations whose branches this port does not have yet:
-    all of them wait in ROADMAP.md's port queue item 1."""
-
-    def missing(what: str) -> NotImplementedError:
-        return NotImplementedError(
-            f"{what} is not ported yet (ROADMAP.md, port queue item 1)"
-        )
-
-    if (cfg.recenter_blocks or 1) > 1 or (cfg.recenter_col_blocks or 1) > 1:
-        raise missing("row-block / tile recentering")
-    if cfg.shift_stack_radius_y is not None:
-        raise missing("the anisotropic shift ball (shift_stack_radius_y)")
-    # The kernels take strides 1 and 2; "packed" and "plain" levels any.
+    grid strides other than 1 and 2 where a kernel samples the level, which
+    wait in ROADMAP.md's port queue item 1 ("packed" and "plain" levels
+    take any)."""
     for level in range(cfg.levels):
         plan = level_plan(cfg, level)
         if plan.shift_stack and plan.stride not in (1, 2):
-            raise missing(f"grid stride {plan.stride} at a kernel level")
+            raise NotImplementedError(
+                f"grid stride {plan.stride} at a kernel level is not ported yet "
+                f"(ROADMAP.md, port queue item 1)"
+            )
 
 
 def _bias_schur(sys, residuals, jacobian, weights):
@@ -373,6 +379,8 @@ class LevelPlan(NamedTuple):
     level_kernel: bool  # the LM loop runs in the level kernel
     fallback: bool  # the hard-motion trigger may send the level to the gather path
     default_mode: str  # "fused", "shift", "packed" or "plain"
+    tiles: bool  # the level kernel's windows: one per 2-D tile
+    blocks: bool  # the level kernel's windows: one per row block
 
 
 def level_plan(cfg: RobustDVOConfig, level: int) -> LevelPlan:
@@ -392,17 +400,41 @@ def level_plan(cfg: RobustDVOConfig, level: int) -> LevelPlan:
         mode = "fused" if fused and cfg.illumination != "affine" else "shift"
     else:
         mode = "packed" if cfg.packed_sampling else "plain"
+    esm = _use_esm(cfg, level)
+    level_kernel = cfg.use_level_kernel and frozen and cfg.lm_lambda0 is not None
+    # Per-block and per-tile centres ride the level kernel alone, off ESM
+    # (JAX robust.py:822-841); tiles take precedence over row blocks.
+    tiles = (
+        level_kernel and not esm
+        and (cfg.recenter_col_blocks or 1) > 1 and cfg.recenter_blocks is not None
+    )
+    blocks = level_kernel and not esm and not tiles and (cfg.recenter_blocks or 1) > 1
     return LevelPlan(
         stride=cfg.stride_for_level(level),
         shift_stack=shift_stack,
         fused=fused,
         frozen=frozen,
-        esm=_use_esm(cfg, level),
-        level_kernel=cfg.use_level_kernel and frozen and cfg.lm_lambda0 is not None,
+        esm=esm,
+        level_kernel=level_kernel,
         fallback=cfg.shift_stack_fallback
         and (shift_stack or cfg.approximate_image2_gradient),
         default_mode=mode,
+        tiles=tiles,
+        blocks=blocks,
     )
+
+
+def block_args(cfg: RobustDVOConfig, plan: LevelPlan) -> dict:
+    """The level kernel's block arguments of a level (``n_blocks``,
+    ``n_blocks_x``, ``radius_y``; none with one centre)."""
+    if not (plan.tiles or plan.blocks):
+        return {}
+    radius_y = (
+        cfg.shift_stack_radius_y if cfg.shift_stack_radius_y is not None
+        else cfg.shift_stack_radius
+    )
+    return dict(n_blocks=cfg.recenter_blocks,
+                n_blocks_x=cfg.recenter_col_blocks if plan.tiles else 1, radius_y=radius_y)
 
 
 class FrozenLevel(NamedTuple):
@@ -414,10 +446,10 @@ class FrozenLevel(NamedTuple):
     u0: torch.Tensor  # (B, H', W') warp at the level's starting estimate
     v0: torch.Tensor
     valid_geom0: torch.Tensor  # (B, H', W') depth-valid and in front
-    planes: torch.Tensor  # (B, s^2, ph, pw) frozen window
-    cu: torch.Tensor  # (B,) int32 window centre
+    planes: torch.Tensor  # (B, s^2, ph, pw) frozen window; blocks: (B, blocks, s^2, ph, pw)
+    cu: torch.Tensor  # (B,) int32 window centre; (B, blocks) or tiles (B, nby, nbx)
     cv: torch.Tensor
-    depth_planes: Optional[torch.Tensor] = None  # (B, s^2, ph, pw) current depth's window
+    depth_planes: Optional[torch.Tensor] = None  # the current depth's window(s), as planes
 
 
 def frozen_level(
@@ -431,16 +463,18 @@ def frozen_level(
     depth_curr: Optional[torch.Tensor] = None,
 ) -> FrozenLevel:
     """Sobel Jacobian planes on the strided grid, and the current image's
-    window extracted once around the recentring at ``estimate0``; with
-    ``depth_curr`` (the depth term) the current depth's window too, at the
-    same centres.
+    window extracted once around the recentring at ``estimate0`` (at a
+    level of row blocks or tiles, :func:`level_plan`, one window per block
+    around its own centre); with ``depth_curr`` (the depth term) the
+    current depth's window too, at the same centres.
 
     At an ESM level the window is sampled once at ``estimate0`` (the stack
     kernel); the Sobel gradient of that warped image is averaged with the
     template's wherever its whole 3x3 support is valid, and the Jacobian
     planes are built from the average.
     """
-    stride = cfg.stride_for_level(level)
+    plan = level_plan(cfg, level)
+    stride = plan.stride
     radius = cfg.shift_stack_radius
     sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
     gx1, gy1 = grad_ops.sobel(gray_prev)
@@ -450,9 +484,31 @@ def frozen_level(
     depth_prev_m = depth_prev_m[..., ::stride, ::stride].contiguous()
     hp, wp = gray_prev.shape[-2], gray_prev.shape[-1]
     _, u0, v0, vg0 = warp_geometry(depth_prev_m, intrinsics, estimate0, stride)
-    cu0, cv0 = compute_recenter(u0, v0, radius, stride, vg0)
-    planes0 = extract_parity_planes(gray_curr, cu0, cv0, hp, wp, radius, stride)
-    if _use_esm(cfg, level):
+    ba = block_args(cfg, plan)
+    if plan.tiles:
+        cu0, cv0 = compute_recenter_tiles(
+            u0, v0, radius, stride, ba["n_blocks"], ba["n_blocks_x"], vg0,
+            radius_y=ba["radius_y"], center_bound=cfg.recenter_center_bound,
+        )
+
+        def extract(img):
+            return extract_parity_planes_tiles(img, cu0, cv0, hp, wp, radius, stride,
+                                               ba["n_blocks"], ba["n_blocks_x"], ba["radius_y"])
+    elif plan.blocks:
+        cu0, cv0 = compute_recenter_blocks(
+            u0, v0, radius, stride, ba["n_blocks"], vg0, radius_y=ba["radius_y"]
+        )
+
+        def extract(img):
+            return extract_parity_planes_blocks(img, cu0, cv0, hp, wp, radius, stride,
+                                                ba["n_blocks"], ba["radius_y"])
+    else:
+        cu0, cv0 = compute_recenter(u0, v0, radius, stride, vg0)
+
+        def extract(img):
+            return extract_parity_planes(img, cu0, cv0, hp, wp, radius, stride)
+    planes0 = extract(gray_curr)
+    if plan.esm:
         du0, dv0, in_ball0 = residual_displacements(
             u0, v0, cu0, cv0, radius, stride, gray_curr.shape[-2], gray_curr.shape[-1]
         )
@@ -471,9 +527,7 @@ def frozen_level(
     jac_planes = approximate_jacobian_planes(
         depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
     )
-    depth_planes = None
-    if depth_curr is not None:
-        depth_planes = extract_parity_planes(depth_curr, cu0, cv0, hp, wp, radius, stride)
+    depth_planes = None if depth_curr is None else extract(depth_curr)
     return FrozenLevel(
         gray_prev, depth_prev_m, jac_planes, u0, v0, vg0, planes0, cu0, cv0, depth_planes
     )
@@ -662,7 +716,18 @@ def _solve_level(
         else:
             _, u0, v0, vg0 = warp_geometry(depth_prev_m, intrinsics, estimate0, stride)
         r = radius if radius is not None else 4
-        cov = shift_coverage(u0, v0, r, stride, coord_mask=vg0)
+        # The coverage of the centres the level will use.
+        ba = block_args(cfg, plan)
+        if plan.tiles:
+            cov = shift_coverage_tiles(
+                u0, v0, r, stride, ba["n_blocks"], ba["n_blocks_x"], vg0,
+                radius_y=ba["radius_y"], center_bound=cfg.recenter_center_bound,
+            )
+        elif plan.blocks:
+            cov = shift_coverage_blocks(u0, v0, r, stride, ba["n_blocks"], vg0,
+                                        radius_y=ba["radius_y"])
+        else:
+            cov = shift_coverage(u0, v0, r, stride, coord_mask=vg0)
         hard = cov < cfg.shift_fallback_min_coverage
         if not approx:
             return hard
@@ -708,23 +773,27 @@ def _solve_level(
         (b,), 1.0 / (cfg.weighter.initial_sigma**2), dtype=torch.float32, device=dev
     )
     level_in = None  # the fused kernels' inputs (LevelInputs), built once
+    # The fused kernel reads one window centre: a level of blocks or tiles
+    # recentres it at each evaluated estimate, as the JAX package does there
+    # (its frozen window is None; JAX robust.py:811-812, :578).
+    one_window = fl is not None and not (plan.blocks or plan.tiles)
 
     def fused_inputs(estimate) -> LevelInputs:
         """The fused kernel's inputs for an evaluation of ``estimate``: the
-        frozen window, or (``freeze_shift_window`` off) the window recentred
-        at ``estimate``."""
+        frozen window, or (``freeze_shift_window`` off, or blocks or tiles)
+        the window recentred at ``estimate``."""
         nonlocal level_in
         if level_in is None:
             zero = torch.zeros((b,), dtype=torch.int32, device=dev)
-            cu, cv = (fl.cu, fl.cv) if fl is not None else (zero, zero)
+            cu, cv = (fl.cu, fl.cv) if one_window else (zero, zero)
             points, scal = level_inputs(
                 cu, cv, depth_prev_m, intrinsics, estimate0, prior_anchor0, wlam_init,
                 None, stride,
             )
             level_in = LevelInputs(
-                None if fl is None else fl.planes, points, gray_prev, jac_planes, scal
+                fl.planes if one_window else None, points, gray_prev, jac_planes, scal
             )
-        if fl is not None:
+        if one_window:
             return level_in
         _, u, v, vg = warp_geometry(depth_prev_m, intrinsics, estimate, stride)
         cu, cv = compute_recenter(u, v, radius, stride, vg)
@@ -864,7 +933,7 @@ def _solve_level(
                 torch.as_tensor(rel_eff, dtype=torch.float32, device=dev), (b,)
             )
         )
-        est, anchor, wlam, err, count, its, level_in = solve_level_fused(
+        est, anchor, wlam, err, count, its, inputs = solve_level_fused(
             fl.planes, fl.cu, fl.cv, depth_prev_m, gray_prev, jac_planes, intrinsics,
             estimate0, prior_anchor0, wlam_init, rel,
             image_h=image_h, image_w=image_w, radius=radius,
@@ -880,7 +949,10 @@ def _solve_level(
             zgrad=None if grads_z is None else torch.stack(grads_z, dim=1),
             sigma=cfg.sigma, reference_prior_energy=cfg.reference_prior_energy,
             depth_weight=cfg.depth_weight, depth_huber_delta=cfg.depth_huber_delta,
+            **block_args(cfg, plan),
         )
+        if one_window:
+            level_in = inputs
         diag = LevelDiagnostics(
             iterations=its, error=err, count=count,
             scale=torch.rsqrt(torch.clamp(wlam, min=1e-20)),

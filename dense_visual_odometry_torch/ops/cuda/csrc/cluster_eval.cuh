@@ -16,6 +16,16 @@
 // read-only path.  The frozen window is
 // read through L1/L2 at <= 4 tent taps per pixel.  Each thread takes
 // several pixels per trip of the warp pass, their loads issued before use.
+// Row blocks and tiles (level kernel): the grid is cut into nby x nbx
+// blocks of t_y x t_x pixels, each with its own centre and window; a pixel
+// (i, j) takes block (i / t_y, j / t_x) and samples its window at
+// (i mod t_y, j mod t_x) (window_at).  The level kernel keeps the centres
+// in shared memory, after the band's planes, copied from the scalar row
+// once per launch (block_centres).  The two passes over the pixels
+// (warp_pass, depth_pass) take blocks as a compile-time flag that the
+// level kernel picks at run time once per pass: without it (the fused
+// kernel, and the level kernel on one centre) the code is the
+// single-centre path, with no division and no register spent on blocks.
 // The level kernel's depth variant (kDepth) adds a pass over the pixels the
 // warp pass kept: the current depth's window at the same taps, the
 // previous depth's gradients from device memory, 29 more float64 sums in
@@ -54,7 +64,7 @@ constexpr int kStaticSharedBytes = 8192;
 
 // The inputs of an evaluation, in level_inputs' layout, and its constants.
 struct EvalInputs {
-  const float* planes;  // (B, s*s, ph, pw) frozen window
+  const float* planes;  // (B, nblk, s*s, ph, pw) frozen windows, one per block
   const float* points;  // (B, 3, hp, wp), NaN where the depth is invalid
   const float* gray;    // (B, hp, wp) template
   const float* jac;     // (B, 6, hp, wp) Jacobian planes
@@ -69,10 +79,16 @@ struct EvalInputs {
   const float* zplanes = nullptr;
   const float* zgrad = nullptr;
   float depth_delta = 0.0f;
+  // The ball's vertical tap radius (radius is the horizontal one) and the
+  // blocks: nby x nbx blocks of t_y x t_x grid pixels, nblk = nby * nbx.
+  int radius_y = 0;
+  int nbx = 1, t_y = 0, t_x = 0, nblk = 1;
 };
 // scal: [0:16) pose (row-major 4x4) | [16:32) anchor | 32 t-scale lambda
 //       | 33 fx | 34 fy | 35 cx | 36 cy | 37 cu | 38 cv | 39 relative
-//       tolerance (< 0 = off); the fused kernel reads [0:12), 32 and 33-38.
+//       tolerance (< 0 = off) | with nblk > 1: [40, 40 + nblk) each block's
+//       cu, then each block's cv (37 and 38 unused); the fused kernel reads
+//       [0:12), 32 and 33-38.
 
 // A CTA's band: its pixels and where its inputs are read from.
 struct Band {
@@ -83,7 +99,7 @@ struct Band {
   int jst;                                    // floats between Jacobian planes
   int zst;                                    // floats between gradient planes
   int off, n;                                 // first pixel in the level, pixels
-  float fx, fy, cx, cy, cu, cv;
+  float fx, fy, cx, cy, cu, cv;               // cu, cv: the one centre (nblk 1)
 };
 
 // The band of CTA `rank` of `nrank` of element b at grid stride S, its
@@ -95,20 +111,56 @@ __device__ __forceinline__ Band band_of(const EvalInputs& E, int b, int rank, in
   Band B;
   B.off = row0 * E.wp;
   B.n = ((rank + 1) * E.hp / nrank - row0) * E.wp;
-  B.planes = E.planes + (size_t)b * S * S * E.ph * E.pw;
+  B.planes = E.planes + (size_t)b * E.nblk * S * S * E.ph * E.pw;
   B.ptx = E.points + (size_t)b * 3 * npx + B.off;
   B.pty = B.ptx + npx;
   B.ptz = B.ptx + 2 * npx;
   B.gray = E.gray + (size_t)b * npx + B.off;
   B.jac = E.jac + (size_t)b * 6 * npx + B.off;
   B.jst = npx;
-  B.zplanes = E.zplanes ? E.zplanes + (size_t)b * S * S * E.ph * E.pw : nullptr;
+  B.zplanes = E.zplanes ? E.zplanes + (size_t)b * E.nblk * S * S * E.ph * E.pw : nullptr;
   B.zgx = E.zgrad ? E.zgrad + (size_t)b * 2 * npx + B.off : nullptr;
   B.zst = npx;
   const float* scal = E.scal + (size_t)b * E.in_cols;
   B.fx = scal[33]; B.fy = scal[34]; B.cx = scal[35]; B.cy = scal[36];
   B.cu = scal[37]; B.cv = scal[38];
   return B;
+}
+
+// Band planes the level kernel keeps in shared memory where they fit: the
+// residuals, points (3), template, Jacobian (6); RESIDENT_PLANES in
+// level_solver.py.
+constexpr int kResidentPlanes = 11;
+
+// The level kernel's copy of the block centres (each block's cu, then each
+// block's cv) in dynamic shared memory, after the band's planes: all
+// kResidentPlanes of them when kResident, else the residuals alone.  Taken
+// from E where it is used, so that no register holds it through the LM
+// loop.
+template <bool kResident>
+__device__ __forceinline__ float* block_centres(const EvalInputs& E) {
+  extern __shared__ __align__(16) float dyn_shared[];
+  return dyn_shared + (kResident ? kResidentPlanes : 1) * E.band_stride;
+}
+
+// Where grid pixel (i, j) samples: its block's window (an offset from the
+// element's first window), its place in that window and its block's centre.
+struct Window {
+  int off, i, j;
+  float cu, cv;
+};
+
+template <bool kBlocks, int S, bool kShared>
+__device__ __forceinline__ Window window_at(const EvalInputs& E, const Band& B, int i, int j) {
+  if constexpr (!kBlocks) {
+    return Window{0, i, j, B.cu, B.cv};
+  } else {
+    const int k = i / E.t_y, l = j / E.t_x;
+    const int t = k * E.nbx + l;
+    const float* cen = block_centres<kShared>(E);
+    return Window{t * S * S * E.ph * E.pw, i - k * E.t_y, j - l * E.t_x, cen[t],
+                  cen[E.nblk + t]};
+  }
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -224,30 +276,22 @@ struct Evaluation {
   float acc[kSums<kIllum>];
 };
 
-// Evaluate the pose T (the 12 entries (R | t), row-major) with the t-scale
-// warm-started at wlam: warp the band's template points, mask and sample,
-// residuals to `res` (NaN = invalid); with kDepth, the depth term's sums
-// (a second pass over the band, below); the illumination pre-fit (bias:
-// the valid mean; affine: also the unweighted gain against the centred
-// template); the `unroll` t-scale steps; the weighted normal equations.
-// The band's inputs are read from shared memory when kShared (stage_band,
-// awaited), else from device memory.  Every thread of every rank calls it
-// and holds the totals in ev; with kDepth the depth term's totals go to
-// ztot (kDepthSums floats of the CTA's shared memory).
-template <int kIllum, int S, bool kShared, bool kDepth = false>
-__device__ __forceinline__ void evaluate(const EvalInputs& E, const Band& B, const float (&T)[12],
-                                         float wlam, float* res, ClusterSums& sh, int& phase,
-                                         const cg::cluster_group& cl, int nrank,
-                                         Evaluation<kIllum>& ev, float* ztot = nullptr) {
+// The warp pass of an evaluation over the band: warp the template points,
+// mask and tent-sample, residuals to `res` (NaN = invalid), and this
+// thread's partial sums to part (count, sum of residuals, and with affine
+// the template's).  kBlocks: the pixel's row block or tile gives its window
+// and centre, and the ball's vertical radius is radius_y; without it one
+// centre and the isotropic ball, the code the fused kernel runs.
+template <int kIllum, int S, bool kShared, bool kBlocks>
+__device__ __forceinline__ void warp_pass(const EvalInputs& E, const Band& B,
+                                          const float (&T)[12], float* res,
+                                          double (&part)[kIllum == kIllumAffine ? 3 : 2]) {
   constexpr bool kAffine = kIllum == kIllumAffine;
-  constexpr int kPhoto = kAffine ? 3 : 2;  // the warp pass's photometric sums
   const int n = B.n;
-  const float rad = (float)E.radius;
+  const int radius_y = kBlocks ? E.radius_y : E.radius;
+  const float rad = (float)E.radius, rad_y = (float)radius_y;
   const float stride = (float)S;
   const float wmax = (float)(E.image_w - 1), hmax = (float)(E.image_h - 1);
-
-  // Warp, mask and sample; residuals to shared memory (NaN = invalid).
-  double part[kPhoto] = {};  // count, sum of residuals (, template)
   // Template row and column of the thread's next pixel, stepped by
   // kThreads pixels at a time rather than divided out per pixel.
   const int step_row = kThreads / E.wp, step_col = kThreads % E.wp;
@@ -284,15 +328,17 @@ __device__ __forceinline__ void evaluate(const EvalInputs& E, const Band& B, con
       const float z_safe = in_front ? zp : 1.0f;
       const float u = (B.fx * xp + B.cx * zp) / z_safe;
       const float v = (B.fy * yp + B.cy * zp) / z_safe;
-      const float du = u - ((float)j * stride + B.cu);
-      const float dv = v - ((float)i * stride + B.cv);
-      const bool in_ball = du > -rad && du < rad && dv > -rad && dv < rad;
+      const Window w = window_at<kBlocks, S, kShared>(E, B, i, j);
+      const float du = u - ((float)j * stride + w.cu);
+      const float dv = v - ((float)i * stride + w.cv);
+      const bool in_ball = du > -rad && du < rad && dv > -rad_y && dv < rad_y;
       const float x0 = floorf(u), y0 = floorf(v);
       const bool in_bounds =
           x0 >= 0.0f && y0 >= 0.0f && x0 + 1.0f <= wmax && y0 + 1.0f <= hmax;
       float r = nanf("");
       if (in_ball && in_bounds && in_front) {
-        r = tent_sample<S>(B.planes, E.ph, E.pw, E.radius, i, j, du, dv) - G[k];
+        r = tent_sample<S>(B.planes + w.off, E.ph, E.pw, E.radius, radius_y, w.i, w.j, du, dv) -
+            G[k];
         part[0] += 1.0;
         part[1] += (double)r;
         if constexpr (kAffine) part[2] += (double)G[k];
@@ -300,36 +346,90 @@ __device__ __forceinline__ void evaluate(const EvalInputs& E, const Band& B, con
       res[p] = r;
     }
   }
-  // The depth term, on the pixels the warp pass kept (those whose residual
-  // this thread just wrote) whose sampled current depth is positive: the
-  // ball-limited validity of the Pallas kernel.  A pass of its own, with
-  // the warp recomputed (the same operations, so the same values), keeps
-  // its 29 accumulators out of the warp pass's registers; its sums ride
-  // the warp pass's cluster reduction.
+}
+
+// The depth term's pass over the band (kDepth): on the pixels the warp pass
+// kept (those whose residual this thread just wrote) whose sampled current
+// depth is positive, the ball-limited validity of the Pallas kernel; this
+// thread's partial sums to zpart.  A pass of its own, with the warp
+// recomputed (the same operations, so the same values), keeps its 29
+// accumulators out of the warp pass's registers.  kBlocks as warp_pass.
+template <int S, bool kShared, bool kBlocks>
+__device__ __forceinline__ void depth_pass(const EvalInputs& E, const Band& B,
+                                           const float (&T)[12], const float* res,
+                                           double (&zpart)[kDepthSums]) {
+  const int n = B.n;
+  const int radius_y = kBlocks ? E.radius_y : E.radius;
+  const float stride = (float)S;
+  for (int p = threadIdx.x; p < n; p += kThreads) {
+    if (isnan(res[p])) continue;
+    const int q = B.off + p;
+    const int i = q / E.wp, j = q - i * E.wp;
+    const float px = load<kShared>(B.ptx + p), py = load<kShared>(B.pty + p),
+                pz = load<kShared>(B.ptz + p);
+    const float xp = T[0] * px + T[1] * py + T[2] * pz + T[3];
+    const float yp = T[4] * px + T[5] * py + T[6] * pz + T[7];
+    const float zp = T[8] * px + T[9] * py + T[10] * pz + T[11];
+    // In front: the warp pass's z_safe is zp.
+    const float u = (B.fx * xp + B.cx * zp) / zp;
+    const float v = (B.fy * yp + B.cy * zp) / zp;
+    const Window w = window_at<kBlocks, S, kShared>(E, B, i, j);
+    const float du = u - ((float)j * stride + w.cu);
+    const float dv = v - ((float)i * stride + w.cv);
+    const float z_meas = tent_sample<S>(B.zplanes + w.off, E.ph, E.pw, E.radius, radius_y,
+                                        w.i, w.j, du, dv);
+    if (!(z_meas > 0.0f)) continue;
+    accumulate_depth<double>(zpart, z_meas, xp, yp, zp, __ldg(B.zgx + p) * B.fx,
+                             __ldg(B.zgx + B.zst + p) * B.fy, E.depth_delta);
+  }
+}
+
+// Evaluate the pose T (the 12 entries (R | t), row-major) with the t-scale
+// warm-started at wlam: warp the band's template points, mask and sample,
+// residuals to `res` (NaN = invalid); with kDepth, the depth term's sums
+// (a second pass over the band); the illumination pre-fit (bias: the valid
+// mean; affine: also the unweighted gain against the centred template);
+// the `unroll` t-scale steps; the weighted normal equations.  The band's
+// inputs are read from shared memory when kShared (stage_band, awaited),
+// else from device memory.  Every thread of every rank calls it and holds
+// the totals in ev; with kDepth the depth term's totals go to ztot
+// (kDepthSums floats of the CTA's shared memory).  kMayBlock: E may hold
+// row blocks or tiles (the level kernel); the two passes over the pixels
+// then take their block path where E.nblk > 1, a branch taken once per
+// pass, so that the single-centre path keeps its code and registers.
+template <int kIllum, int S, bool kShared, bool kDepth = false, bool kMayBlock = false>
+__device__ __forceinline__ void evaluate(const EvalInputs& E, const Band& B, const float (&T)[12],
+                                         float wlam, float* res, ClusterSums& sh, int& phase,
+                                         const cg::cluster_group& cl, int nrank,
+                                         Evaluation<kIllum>& ev, float* ztot = nullptr) {
+  constexpr bool kAffine = kIllum == kIllumAffine;
+  constexpr int kPhoto = kAffine ? 3 : 2;  // the warp pass's photometric sums
+  const int n = B.n;
+  const bool blocks = kMayBlock && E.nblk > 1;
+
+  double part[kPhoto] = {};  // count, sum of residuals (, template)
+  if constexpr (kMayBlock) {
+    if (blocks)
+      warp_pass<kIllum, S, kShared, true>(E, B, T, res, part);
+    else
+      warp_pass<kIllum, S, kShared, false>(E, B, T, res, part);
+  } else {
+    warp_pass<kIllum, S, kShared, false>(E, B, T, res, part);
+  }
+  // The depth term's sums ride the warp pass's cluster reduction.
   constexpr int kWarpSums = kPhoto + (kDepth ? kDepthSums : 0);
   double all[kWarpSums];
 #pragma unroll
   for (int k = 0; k < kPhoto; ++k) all[k] = part[k];
   if constexpr (kDepth) {
     double zpart[kDepthSums] = {};
-    for (int p = threadIdx.x; p < n; p += kThreads) {
-      if (isnan(res[p])) continue;
-      const int q = B.off + p;
-      const int i = q / E.wp, j = q - i * E.wp;
-      const float px = load<kShared>(B.ptx + p), py = load<kShared>(B.pty + p),
-                  pz = load<kShared>(B.ptz + p);
-      const float xp = T[0] * px + T[1] * py + T[2] * pz + T[3];
-      const float yp = T[4] * px + T[5] * py + T[6] * pz + T[7];
-      const float zp = T[8] * px + T[9] * py + T[10] * pz + T[11];
-      // In front: the warp pass's z_safe is zp.
-      const float u = (B.fx * xp + B.cx * zp) / zp;
-      const float v = (B.fy * yp + B.cy * zp) / zp;
-      const float du = u - ((float)j * stride + B.cu);
-      const float dv = v - ((float)i * stride + B.cv);
-      const float z_meas = tent_sample<S>(B.zplanes, E.ph, E.pw, E.radius, i, j, du, dv);
-      if (!(z_meas > 0.0f)) continue;
-      accumulate_depth<double>(zpart, z_meas, xp, yp, zp, __ldg(B.zgx + p) * B.fx,
-                               __ldg(B.zgx + B.zst + p) * B.fy, E.depth_delta);
+    if constexpr (kMayBlock) {
+      if (blocks)
+        depth_pass<S, kShared, true>(E, B, T, res, zpart);
+      else
+        depth_pass<S, kShared, false>(E, B, T, res, zpart);
+    } else {
+      depth_pass<S, kShared, false>(E, B, T, res, zpart);
     }
 #pragma unroll
     for (int k = 0; k < kDepthSums; ++k) all[kPhoto + k] = zpart[k];

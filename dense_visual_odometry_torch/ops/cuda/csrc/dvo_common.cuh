@@ -4,7 +4,9 @@
 // The level and fused kernels evaluate the same per-pixel photometric model
 // over the strided template grid of one batch element, with the same code
 // (cluster_eval.cuh): warp the template points, sample the frozen window
-// around the integer centre (cu, cv) by its tent taps, form the residual
+// around the integer centre (cu, cv) by its tent taps (the level kernel may
+// cut the grid into row blocks or tiles, each with its own centre and
+// window, and take an anisotropic ball), form the residual
 // against the template, take out the illumination pre-fit ("bias": the
 // valid mean; "affine", level kernel only: also the gain against the
 // centred template), run the t-distribution scale fixed point and reduce
@@ -38,28 +40,31 @@ constexpr int kIllumNone = 0;
 constexpr int kIllumBias = 1;
 constexpr int kIllumAffine = 2;
 
-// Tent-tap sample of the frozen window at grid pixel (i, j), displacement
-// (du, dv) from the window centre, at grid stride S (1 or 2).  The TPU
-// kernels sweep all (2r+1)^2 taps; a tent weight max(0, 1 - |d - k|) is
+// Tent-tap sample of a frozen window at its grid pixel (i, j) (the pixel's
+// place in its block's window), displacement (du, dv) from the window
+// centre, at grid stride S (1 or 2), with tap radii rx across and ry down.
+// The TPU kernels sweep all (2 ry + 1)(2 rx + 1) taps; a tent weight
+// max(0, 1 - |d - k|) is
 // non-zero for at most two k per axis (floor(d) and floor(d) + 1), so only
 // those <= 4 taps are read, straight from the parity planes through the
 // read-only path, and summed in the sweep's order: rows ascending, and
 // within a row by column parity plane first (stride 2), then by column.
-// Taps outside [-r, r] carry no weight in the sweep and are skipped; a NaN
-// displacement gives NaN as it does there.  A tap's window offset a = r + k
-// is >= 0, so with S known at compile time its parity plane and plane
-// column are a mask and a shift.  All four taps are loaded, from offsets
-// clamped into the window, before any is used (a tap outside [-r, r] is
-// loaded but not added), so a thread's loads are in flight together.
+// Taps outside [-ry, ry] x [-rx, rx] carry no weight in the sweep and are
+// skipped; a NaN displacement gives NaN as it does there.  A tap's window
+// offset a = ry + ky (b = rx + kx) is >= 0, so with S known at compile time
+// its parity plane and plane column are a mask and a shift.  All four taps
+// are loaded, from offsets clamped into the window, before any is used (a
+// tap outside the ball's range is loaded but not added), so a thread's
+// loads are in flight together.
 template <int S>
 __device__ __forceinline__ float tent_sample(
-    const float* __restrict__ planes, int ph, int pw, int r,
+    const float* __restrict__ planes, int ph, int pw, int rx, int ry,
     int i, int j, float du, float dv) {
   static_assert(S == 1 || S == 2, "grid stride 1 or 2");
   constexpr int kShift = S == 2 ? 1 : 0;
   const float fy = floorf(dv);
   const float fx = floorf(du);
-  const float rf = (float)r;
+  const float rxf = (float)rx, ryf = (float)ry;
   const int plane = ph * pw;
   // Rows fy, fy + 1 and columns fx (first), fx + 1 (second): weight, whether
   // the tap lies in the window, and its window offset clamped into it.
@@ -70,12 +75,12 @@ __device__ __forceinline__ float tent_sample(
   for (int t = 0; t < 2; ++t) {
     const float kyf = fy + (float)t;
     const float kxf = fx + (float)t;
-    hy[t] = kyf >= -rf && kyf <= rf;
-    hx[t] = kxf >= -rf && kxf <= rf;
+    hy[t] = kyf >= -ryf && kyf <= ryf;
+    hx[t] = kxf >= -rxf && kxf <= rxf;
     wy[t] = fmaxf(0.0f, 1.0f - fabsf(dv - kyf));
     wx[t] = fmaxf(0.0f, 1.0f - fabsf(du - kxf));
-    const int a = r + min(max((int)kyf, -r), r);
-    const int b = r + min(max((int)kxf, -r), r);
+    const int a = ry + min(max((int)kyf, -ry), ry);
+    const int b = rx + min(max((int)kxf, -rx), rx);
     row[t] = (a & (S - 1)) * S * plane + ((a >> kShift) + i) * pw;
     col[t] = (b & (S - 1)) * plane + (b >> kShift) + j;
   }
@@ -85,7 +90,7 @@ __device__ __forceinline__ float tent_sample(
 #pragma unroll
     for (int tx = 0; tx < 2; ++tx) val[ty][tx] = __ldg(planes + row[ty] + col[tx]);
   // At stride 2 the sweep visits the even-parity plane before the odd one.
-  const bool swap = (S == 2) && hx[0] && ((r + (int)fx) & 1);
+  const bool swap = (S == 2) && hx[0] && ((rx + (int)fx) & 1);
   float acc = 0.0f;
 #pragma unroll
   for (int ty = 0; ty < 2; ++ty) {

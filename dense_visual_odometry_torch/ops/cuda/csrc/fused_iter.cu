@@ -115,9 +115,11 @@ extern "C" int dvo_fused_evaluation(
     int use_tweights, int normalize_scale, int illum, int cluster, int band_stride,
     int dynamic_bytes, void* stream) {
   if (illum == dvo::kIllumAffine) return static_cast<int>(cudaErrorInvalidValue);
+  // One window centre: the isotropic ball, one block of hp x wp pixels.
   const FusedParams P{
       {planes, points, gray, jac, scal, ph, pw, hp, wp, in_cols, radius, image_h, image_w,
-       unroll, use_tweights, normalize_scale, band_stride, dof},
+       unroll, use_tweights, normalize_scale, band_stride, dof, nullptr, nullptr, 0.0f,
+       radius, 1, hp, wp, 1},
       out};
   return static_cast<int>(dvo::launch(pick(illum, s), P, batch, cluster,
                                       dynamic_bytes, static_cast<cudaStream_t>(stream)));

@@ -2,9 +2,22 @@
 // over a thread-block cluster.
 //
 // Replaces: dense_visual_odometry_tpu/ops/pallas/level_solver.py:268
-// _level_kernel (single frozen-window centre, illumination none, "bias" or
-// "affine", with or without the depth term and the motion prior; no row
-// blocks, tiles or anisotropic ball).
+// _level_kernel (one frozen-window centre, or one per row block or 2-D
+// tile with an anisotropic ball; illumination none, "bias" or "affine";
+// with or without the depth term and the motion prior; grid strides 1
+// and 2).
+//
+// Row blocks and tiles are runtime parameters (nby, nbx, t_y, t_x,
+// radius_y), not template variants: the warp pass and the depth pass take
+// their block path or their single-centre path by one branch each (nblk >
+// 1; cluster_eval.cuh, evaluate); on the block path a pixel finds its
+// block's window and centre by two integer divisions (window_at).  Both
+// paths are in every variant; the reductions and the LM step are shared.  The TPU kernel lays the
+// blocks out as a mosaic with halo rows and columns that its uniform rolls
+// may cross; here each block's window is its own array and no grid pixel
+// is duplicated, so there is no halo pixel to mask.  The centres (2 floats
+// a block) are copied from the scalar row into shared memory once per
+// launch, after the band's planes.
 //
 // Each LM iteration is one evaluation of the trial pose over the cluster
 // (cluster_eval.cuh: geometry, the band's residuals in shared memory, the
@@ -302,9 +315,14 @@ __global__ void __launch_bounds__(dvo::kThreads, 1) level_kernel(LevelParams P) 
   float* res = dyn;
   dvo::Band band = dvo::band_of<S>(P.in, b, rank, nrank);
   // After the residuals: points (3), template, Jacobian (6), each a plane
-  // of band_stride floats (RESIDENT_PLANES = 11 in all).
+  // of band_stride floats (RESIDENT_PLANES = 11 in all); then, with blocks,
+  // their centres.
   if constexpr (kResident)
     dvo::stage_band(band, dyn + P.in.band_stride, P.in.band_stride);
+  if (P.in.nblk > 1) {  // read after the __syncthreads below
+    float* cen = dvo::block_centres<kResident>(P.in);
+    for (int t = threadIdx.x; t < 2 * P.in.nblk; t += dvo::kThreads) cen[t] = scal[40 + t];
+  }
   const float rel = scal[39];
 
   if (threadIdx.x == 0) {
@@ -339,8 +357,8 @@ __global__ void __launch_bounds__(dvo::kThreads, 1) level_kernel(LevelParams P) 
 #pragma unroll
     for (int k = 0; k < 12; ++k) T[k] = sh.view.est_try[k];
     dvo::Evaluation<kIllum> ev;
-    dvo::evaluate<kIllum, S, kResident, kDepth>(P.in, band, T, sh.view.wlam, res, sh.sums, phase,
-                                                cl, nrank, ev, sh.ztot);
+    dvo::evaluate<kIllum, S, kResident, kDepth, true>(P.in, band, T, sh.view.wlam, res, sh.sums,
+                                                      phase, cl, nrank, ev, sh.ztot);
     if (rank == 0 && threadIdx.x == 0) {
       // The Pallas kernel's order: illumination Schur, depth term, prior.
       float h21[21], rhs[6], err;
@@ -418,6 +436,8 @@ extern "C" int dvo_max_active_clusters(int illum, int s, int resident, int depth
 }
 
 // zplanes / zgrad: the depth term's inputs, null without it (depth 0).
+// radius_y, nby, nbx, t_y, t_x: the ball's vertical radius and the blocks
+// (1 x 1 blocks of hp x wp: one centre); ph, pw: one block's window.
 extern "C" int dvo_level_solver(
     const float* planes, const float* points, const float* gray,
     const float* jac, const float* scal, const float* zplanes, const float* zgrad, float* out,
@@ -427,13 +447,17 @@ extern "C" int dvo_level_solver(
     float lm_lambda0, float lm_up, float lm_down, float lm_lambda_max,
     int max_iterations, int depth, float depth_weight, float depth_delta,
     int prior, float inv_cov, float sigma, int reference_energy,
+    int radius_y, int nby, int nbx, int t_y, int t_x,
     int cluster, int resident, int band_stride, int dynamic_bytes, void* stream) {
   if (depth && (zplanes == nullptr || zgrad == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nby < 1 || nbx < 1 || t_y < 1 || t_x < 1 || radius_y < 1 || radius_y > radius ||
+      in_cols != 40 + (nby * nbx > 1 ? 2 * nby * nbx : 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const LevelParams P{
       {planes, points, gray, jac, scal, ph, pw, hp, wp, in_cols, radius, image_h, image_w,
        unroll, use_tweights, normalize_scale, band_stride, dof, depth ? zplanes : nullptr,
-       depth ? zgrad : nullptr, depth_delta},
+       depth ? zgrad : nullptr, depth_delta, radius_y, nbx, t_y, t_x, nby * nbx},
       out, max_iterations, tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
       depth_weight, prior, inv_cov, sigma, reference_energy};
   return static_cast<int>(dvo::launch(pick(illum, s, resident, depth), P, batch, cluster,

@@ -41,7 +41,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY) stack_kernel(
   const int b = blockIdx.z;
   if (i >= hp || j >= wp) return;
   const int p = (b * hp + i) * wp + j;
-  out[p] = dvo::tent_sample<S>(planes + b * (S * S * ph * pw), ph, pw, radius, i, j,
+  out[p] = dvo::tent_sample<S>(planes + b * (S * S * ph * pw), ph, pw, radius, radius, i, j,
                                __ldg(du + p), __ldg(dv + p));
 }
 

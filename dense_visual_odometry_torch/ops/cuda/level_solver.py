@@ -2,22 +2,26 @@
 
 Counterpart of ``dense_visual_odometry_tpu/ops/pallas/level_solver.py``
 (``_level_kernel`` :268, ``lm_level_pallas`` :794, ``solve_level_fused``
-:928) for a single frozen-window centre per element.  :func:`lm_level` takes
-the Pallas call's argument layout: on CUDA tensors it launches
-``csrc/level_solver.cu`` (each batch element runs the whole LM loop on a
-cluster of CTAs, each CTA on a band of template rows; :func:`level_geometry`
-sizes it); on CPU tensors it runs :func:`lm_level_plain`, the same function
-in plain PyTorch.  Any other device raises.
+:928): one frozen-window centre per element, or one per row block or 2-D
+tile with an anisotropic ball (``shiftwarp.WindowLayout``; the Pallas
+kernel's slab and tile mosaics, :332-421).  :func:`lm_level` takes the
+Pallas call's argument layout, with one window per block: on CUDA tensors
+it launches ``csrc/level_solver.cu`` (each batch element runs the whole LM
+loop on a cluster of CTAs, each CTA on a band of template rows;
+:func:`level_geometry` sizes it); on CPU tensors it runs
+:func:`lm_level_plain`, the same function in plain PyTorch.  Any other
+device raises.
 
 Per element the loop evaluates the trial pose (:func:`level_evaluation`,
 which the fused kernel's plain version shares: warp of NaN-poisoned
 template points, ball / in-bounds / in-front masks, tent taps of the frozen
-window, optional illumination pre-fit (bias: valid-mean centring; affine:
-also the unweighted gain against the centred template), t-scale fixed
-point, weighted normal equations with the rank-1 bias or rank-2 gain+bias
-Schur; optionally the depth term, on a second frozen window over the
-current depth at the same taps, with Huber weights), adds the motion prior
-toward the trial anchor where ``sigma`` is set (:func:`_add_prior`, through
+window (each pixel's block's window, around its centre), optional
+illumination pre-fit (bias: valid-mean centring; affine: also the
+unweighted gain against the centred template), t-scale fixed point,
+weighted normal equations with the rank-1 bias or rank-2 gain+bias Schur;
+optionally the depth term, on a second frozen window over the current
+depth at the same taps, with Huber weights), adds the motion prior toward
+the trial anchor where ``sigma`` is set (:func:`_add_prior`, through
 :func:`se3_log_rows`), then takes ``_lm_loop``'s step:
 accept/reject, damping up/down and clip, damped 6x6 Cholesky solve, the
 predictive and relative stopping rules, ``exp`` update of the estimate and
@@ -36,9 +40,14 @@ import torch
 from dense_visual_odometry_torch.models.weighting import huber_weights
 from dense_visual_odometry_torch.ops.cuda import build
 from dense_visual_odometry_torch.ops.residuals import inverse_intrinsics
-from dense_visual_odometry_torch.ops.shiftwarp import tent_sample
+from dense_visual_odometry_torch.ops.shiftwarp import (
+    WindowLayout,
+    block_index,
+    tent_sample,
+    window_layout,
+)
 
-IN_COLS = 40
+IN_COLS = 40  # scalar-row columns with one window centre
 OUT_COLS = 48
 FMAX = float(torch.finfo(torch.float32).max)
 _SMALL_ANGLE_SQ = 1e-4
@@ -343,11 +352,28 @@ def _add_prior(h21, rhs, err, anchor, sigma, reference_prior_energy):
     return h21, rhs, err + 0.5 * icov * sq
 
 
+def in_cols(layout: WindowLayout) -> int:
+    """Scalar-row columns of a layout: :data:`IN_COLS`, and with blocks each
+    block's cu then each block's cv from column 40 on (the Pallas kernel's
+    layout)."""
+    return IN_COLS + (2 * layout.blocks if layout.blocks > 1 else 0)
+
+
+def centre_maps(scal: torch.Tensor, layout: WindowLayout, hp: int, wp: int):
+    """-> (cu, cv) of every grid pixel's block, (B, H', W') float32, from
+    the scalar row."""
+    if layout.blocks == 1:
+        return scal[:, 37][:, None, None], scal[:, 38][:, None, None]
+    n = layout.blocks
+    blk, _, _ = block_index(layout, hp, wp, scal.device)
+    return scal[:, IN_COLS:IN_COLS + n][:, blk], scal[:, IN_COLS + n:IN_COLS + 2 * n][:, blk]
+
+
 def level_evaluation(
     planes, points, gray_prev, jac_planes, scal, est, wlam, radius, grid_stride,
     image_h, image_w, dof, unroll, use_tweights, normalize_scale,
     illum_bias=False, illum_affine=False, depth_planes=None, zgrad=None,
-    depth_weight=1.0, depth_huber_delta=0.03,
+    depth_weight=1.0, depth_huber_delta=0.03, layout: Optional[WindowLayout] = None,
 ):
     """One evaluation of the pose ``est`` (12 columns (R | t), row-major,
     each (B,)) with the t-scale warm-started at ``wlam`` (B,), on the level
@@ -355,19 +381,25 @@ def level_evaluation(
     in-bounds / in-front masks, tent taps of the frozen window, then
     :func:`_reduce`, and with ``depth_planes`` (the current depth's frozen
     window) and ``zgrad`` the depth term (:func:`_add_depth`, its depth
-    tent-sampled at the same taps).  -> (h21, rhs, err, count, lam).  The
-    plain version of the evaluation that the level kernel runs once per LM
-    iteration and the fused kernel once (``csrc/cluster_eval.cuh``)."""
+    tent-sampled at the same taps).  ``layout``: row blocks or tiles, each
+    pixel's displacement taken from its block's centre and sampled from its
+    block's window, inside the ball |du| < r, |dv| < r_y (default: one
+    centre).  -> (h21, rhs, err, count, lam).  The plain version of the
+    evaluation that the level kernel runs once per LM iteration and the
+    fused kernel once (``csrc/cluster_eval.cuh``)."""
     dev = points.device
     hp, wp = points.shape[-2], points.shape[-1]
     s = grid_stride
+    if layout is None:
+        layout = window_layout(hp, wp, radius, s)
     px, py, pz = points[:, 0], points[:, 1], points[:, 2]
     fx, fy, cx, cy = (scal[:, k][:, None, None] for k in (33, 34, 35, 36))
     col = torch.arange(wp, dtype=torch.float32, device=dev)[None, None, :]
     row = torch.arange(hp, dtype=torch.float32, device=dev)[None, :, None]
-    coli = col * float(s) + scal[:, 37][:, None, None]
-    rowi = row * float(s) + scal[:, 38][:, None, None]
-    rad = float(radius)
+    cu, cv = centre_maps(scal, layout, hp, wp)
+    coli = col * float(s) + cu
+    rowi = row * float(s) + cv
+    rad, rad_y = float(radius), float(layout.radius_y)
     r00, r01, r02, tx, r10, r11, r12, ty, r20, r21, r22, tz = (
         e[:, None, None] for e in est
     )
@@ -380,7 +412,7 @@ def level_evaluation(
     v = (fy * yp + cy * zp) / z_safe
     du = u - coli
     dv = v - rowi
-    in_ball = (du > -rad) & (du < rad) & (dv > -rad) & (dv < rad)
+    in_ball = (du > -rad) & (du < rad) & (dv > -rad_y) & (dv < rad_y)
     x0 = torch.floor(u)
     y0 = torch.floor(v)
     in_bounds = (
@@ -388,7 +420,7 @@ def level_evaluation(
         & (x0 + 1.0 <= float(image_w - 1)) & (y0 + 1.0 <= float(image_h - 1))
     )
     valid = in_ball & in_bounds & in_front
-    acc = tent_sample(planes, du, dv, radius, s)
+    acc = tent_sample(planes, du, dv, radius, s, layout)
     res = torch.where(valid, acc - gray_prev, torch.zeros_like(acc))
     h21, rhs, err, count, lam = _reduce(
         res, valid, gray_prev, jac_planes, wlam, dof, unroll, use_tweights,
@@ -396,7 +428,7 @@ def level_evaluation(
     )
     if depth_planes is not None:
         h21, rhs, err = _add_depth(
-            h21, rhs, err, valid, tent_sample(depth_planes, du, dv, radius, s),
+            h21, rhs, err, valid, tent_sample(depth_planes, du, dv, radius, s, layout),
             xp, yp, zp, zgrad, fx, fy, depth_weight, depth_huber_delta,
         )
     return h21, rhs, err, count, lam
@@ -408,23 +440,25 @@ def lm_level_plain(
     lm_lambda0, lm_up, lm_down, lm_lambda_max, max_iterations,
     illum_bias=False, illum_affine=False, depth_planes=None, zgrad=None,
     sigma=None, reference_prior_energy=False, depth_weight=1.0,
-    depth_huber_delta=0.03,
+    depth_huber_delta=0.03, n_blocks=1, n_blocks_x=1, radius_y=None,
 ) -> torch.Tensor:
     """Plain-PyTorch version of the level kernel: same inputs, same
-    (B, 48) rows.  The loop runs while any element is active; finished
+    (B, 48) rows (row blocks, tiles and ``radius_y`` as :func:`lm_level`
+    takes them).  The loop runs while any element is active; finished
     elements keep their state, which is the kernel's per-element exit.
     Each evaluation adds the depth term (``depth_planes``) and then the
     motion prior (``sigma``) at the trial anchor."""
-    b = points.shape[0]
+    b, _, hp, wp = points.shape
     dev = points.device
     rel = scal[:, 39]
+    layout = window_layout(hp, wp, radius, grid_stride, n_blocks, n_blocks_x, radius_y)
 
     def evaluate(est, anchor, wlam):
         h21, rhs, err, count, lam = level_evaluation(
             planes, points, gray_prev, jac_planes, scal, est, wlam, radius,
             grid_stride, image_h, image_w, dof, unroll, use_tweights,
             normalize_scale, illum_bias, illum_affine, depth_planes, zgrad,
-            depth_weight, depth_huber_delta,
+            depth_weight, depth_huber_delta, layout,
         )
         if sigma is not None:
             h21, rhs, err = _add_prior(h21, rhs, err, anchor, sigma, reference_prior_energy)
@@ -525,21 +559,26 @@ def lm_level_plain(
 
 
 def check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius,
-                 depth_planes=None, zgrad=None):
+                 depth_planes=None, zgrad=None, layout: Optional[WindowLayout] = None):
     """Raise unless the level kernel's inputs (and the fused kernel's) have
     the layout, type and device the kernels take; the depth term's two
-    inputs come together or not at all."""
+    inputs come together or not at all.  ``layout``: the windows of row
+    blocks or tiles, (B, blocks, s^2, ph, pw), and their centres in the
+    scalar row (default: one window, (B, s^2, ph, pw))."""
     b, _, hp, wp = points.shape
     s = grid_stride
     if s not in (1, 2):
         raise ValueError(f"grid_stride must be 1 or 2, got {s}")
-    window = (b, s * s, (2 * radius) // s + hp, (2 * radius) // s + wp)
+    if layout is None:
+        layout = window_layout(hp, wp, radius, s)
+    window = (b,) + ((layout.blocks,) if layout.blocks > 1 else ()) + (
+        s * s, layout.ph, layout.pw)
     expect = {
         "planes": (planes, window),
         "points": (points, (b, 3, hp, wp)),
         "gray_prev": (gray_prev, (b, hp, wp)),
         "jac_planes": (jac_planes, (b, 6, hp, wp)),
-        "scal": (scal, (b, IN_COLS)),
+        "scal": (scal, (b, in_cols(layout))),
     }
     if (depth_planes is None) != (zgrad is None):
         raise ValueError("depth_planes and zgrad come together")
@@ -592,36 +631,46 @@ def band_rows(hp: int, cluster: int) -> List[Tuple[int, int]]:
     return [(k * hp // cluster, (k + 1) * hp // cluster) for k in range(cluster)]
 
 
-def _layout(hp: int, wp: int, cluster: int, resident_planes: int = RESIDENT_PLANES):
+def _layout(hp: int, wp: int, cluster: int, resident_planes: int = RESIDENT_PLANES,
+            centre_floats: int = 0):
     """(band pixels, band stride, resident, shared bytes) of a cluster size,
     or None where even the band's residuals do not fit in shared memory.
     ``resident_planes``: the band planes a kernel keeps in shared memory
     where they fit (the residuals among them); else it keeps the residuals
-    alone.  ``resident``: more than the residuals are kept."""
+    alone.  ``resident``: more than the residuals are kept.
+    ``centre_floats``: the block centres the level kernel keeps after the
+    planes (:func:`centre_floats`)."""
     band = max(r1 - r0 for r0, r1 in band_rows(hp, cluster)) * wp
     stride = -(-band // 4) * 4
     for planes in (resident_planes, 1):
-        shared = STATIC_SHARED_BYTES + 4 * planes * stride
+        shared = STATIC_SHARED_BYTES + 4 * (planes * stride + centre_floats)
         if shared <= SHARED_LIMIT:
             return band, stride, planes > 1, shared
     return None
 
 
-def geometries(hp: int, wp: int, kernel: ClusterKernel) -> List[LevelGeometry]:
+def centre_floats(layout: WindowLayout) -> int:
+    """Floats of shared memory the level kernel gives a launch's block
+    centres (each block's cu and cv; none with one centre)."""
+    return 2 * layout.blocks if layout.blocks > 1 else 0
+
+
+def geometries(hp: int, wp: int, kernel: ClusterKernel, centres: int = 0) -> List[LevelGeometry]:
     """Every launch geometry of ``kernel`` that fits an ``hp`` x ``wp``
-    level: each cluster size, with the resident planes where they fit and
-    with the residuals alone; the card is not asked.  The geometries a
-    launch may take on some batch size or card (``_launch(...,
-    geometry=...)`` runs each)."""
+    level (with ``centres`` floats of block centres): each cluster size,
+    with the resident planes where they fit and with the residuals alone;
+    the card is not asked.  The geometries a launch may take on some batch
+    size or card (``_launch(..., geometry=...)`` runs each)."""
     out = []
     for c in CLUSTER_SIZES:
-        layout = _layout(hp, wp, c, kernel.resident_planes) if c <= hp else None
+        layout = _layout(hp, wp, c, kernel.resident_planes, centres) if c <= hp else None
         if layout is None:
             continue
         band, stride, resident, _ = layout
         for planes in sorted({kernel.resident_planes if resident else 1, 1}, reverse=True):
             out.append(LevelGeometry(c, band, stride, planes > 1,
-                                     STATIC_SHARED_BYTES + 4 * planes * stride, None))
+                                     STATIC_SHARED_BYTES + 4 * (planes * stride + centres),
+                                     None))
     return out
 
 
@@ -632,6 +681,7 @@ def level_geometry(
     sm_count: int,
     max_active_clusters: Optional[Callable[[int, bool, int], int]] = None,
     kernel: ClusterKernel = LEVEL_KERNEL,
+    centres: int = 0,
 ) -> LevelGeometry:
     """The launch geometry of a level of B = ``batch`` elements on an
     ``hp`` x ``wp`` template grid, on a card of ``sm_count`` SMs, for
@@ -654,10 +704,12 @@ def level_geometry(
     level kernel runs faster on 16-CTA clusters with resident inputs, in
     two waves, than on 8-CTA clusters that stream them every LM iteration;
     the fused kernel, which reads its inputs once, runs faster on the
-    8-CTA clusters in one wave (PERF.md).  Raises if no size passes 1, or
-    the card schedules none.
+    8-CTA clusters in one wave (PERF.md).  ``centres``: floats of block
+    centres in shared memory (:func:`centre_floats`).  Raises if no size
+    passes 1, or the card schedules none.
     """
-    layouts = {c: _layout(hp, wp, c, kernel.resident_planes) for c in CLUSTER_SIZES if c <= hp}
+    layouts = {c: _layout(hp, wp, c, kernel.resident_planes, centres)
+               for c in CLUSTER_SIZES if c <= hp}
     fitting = [c for c, lay in layouts.items() if lay is not None]
     if not fitting:
         raise ValueError(
@@ -713,22 +765,24 @@ def _max_active_clusters(device: torch.device, library: str, illum: int, grid_st
 
 def launch_geometry(points: torch.Tensor, grid_stride: int, illum_bias: bool = False,
                     illum_affine: bool = False,
-                    kernel: ClusterKernel = LEVEL_KERNEL, depth: bool = False) -> LevelGeometry:
+                    kernel: ClusterKernel = LEVEL_KERNEL, depth: bool = False,
+                    centres: int = 0) -> LevelGeometry:
     """The geometry :func:`lm_level` (or, for ``fused_iter.FUSED_KERNEL``,
     ``fused_evaluation``) launches with for these CUDA inputs; ``depth``:
     the level kernel's variant with the depth term, a kernel function of
-    its own whose occupancy the card is asked for."""
+    its own whose occupancy the card is asked for; ``centres``: floats of
+    block centres (:func:`centre_floats`)."""
     b, _, hp, wp = points.shape
     dev = points.device
     illum = _illum_code(illum_bias, illum_affine)
-    key = (dev.index, kernel, b, hp, wp, grid_stride, illum, depth)
+    key = (dev.index, kernel, b, hp, wp, grid_stride, illum, depth, centres)
     if key not in _geometries:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         _geometries[key] = level_geometry(
             b, hp, wp, sms,
             lambda c, resident, dyn: _max_active_clusters(
                 dev, kernel.library, illum, grid_stride, c, resident, dyn, depth),
-            kernel,
+            kernel, centres,
         )
     return _geometries[key]
 
@@ -738,11 +792,15 @@ def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
             tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
             max_iterations, illum_bias=False, illum_affine=False, depth_planes=None,
             zgrad=None, sigma=None, reference_prior_energy=False, depth_weight=1.0,
-            depth_huber_delta=0.03, geometry: Optional[LevelGeometry] = None) -> torch.Tensor:
+            depth_huber_delta=0.03, n_blocks=1, n_blocks_x=1, radius_y=None,
+            geometry: Optional[LevelGeometry] = None) -> torch.Tensor:
     """Launch the kernel, at ``geometry`` or at :func:`launch_geometry`'s."""
     depth = depth_planes is not None
+    b, _, hp, wp = points.shape
+    layout = window_layout(hp, wp, radius, grid_stride, n_blocks, n_blocks_x, radius_y)
     if geometry is None:
-        geometry = launch_geometry(points, grid_stride, illum_bias, illum_affine, depth=depth)
+        geometry = launch_geometry(points, grid_stride, illum_bias, illum_affine, depth=depth,
+                                   centres=centre_floats(layout))
     lib = build.load("level_solver")
     fn = lib.dvo_level_solver
     fn.restype = ctypes.c_int
@@ -752,10 +810,9 @@ def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
         + [ctypes.c_float] * 5 + [ctypes.c_int]
         + [ctypes.c_int, ctypes.c_float, ctypes.c_float]
         + [ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_int] * 5
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
-    b, _, hp, wp = points.shape
-    ph, pw = planes.shape[-2], planes.shape[-1]
     out = torch.empty((b, OUT_COLS), dtype=torch.float32, device=points.device)
     stream = torch.cuda.current_stream(points.device).cuda_stream
     status = fn(
@@ -763,18 +820,23 @@ def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
         jac_planes.data_ptr(), scal.data_ptr(),
         depth_planes.data_ptr() if depth else None, zgrad.data_ptr() if depth else None,
         out.data_ptr(),
-        b, grid_stride, ph, pw, hp, wp, IN_COLS, radius, image_h, image_w,
-        dof, unroll, int(use_tweights), int(normalize_scale),
+        b, grid_stride, layout.ph, layout.pw, hp, wp, in_cols(layout), radius, image_h,
+        image_w, dof, unroll, int(use_tweights), int(normalize_scale),
         _illum_code(illum_bias, illum_affine), tolerance, lm_lambda0, lm_up, lm_down,
         lm_lambda_max, max_iterations,
         int(depth), depth_weight, depth_huber_delta,
         int(sigma is not None), 0.0 if sigma is None else 1.0 / sigma,
         0.0 if sigma is None else sigma, int(reference_prior_energy),
+        layout.radius_y, layout.nby, layout.nbx, layout.t_y, layout.t_x,
         geometry.cluster, int(geometry.resident), geometry.band_stride,
         geometry.dynamic_bytes, stream,
     )
     build.check(status, "level_solver")
     lm_level.launches += 1
+    if layout.tiles:
+        lm_level.tile_launches += 1
+    elif layout.blocks > 1:
+        lm_level.block_launches += 1
     return out
 
 
@@ -806,11 +868,18 @@ def lm_level(
     reference_prior_energy: bool = False,
     depth_weight: float = 1.0,
     depth_huber_delta: float = 0.03,
+    n_blocks: int = 1,
+    n_blocks_x: int = 1,
+    radius_y: Optional[int] = None,
 ) -> torch.Tensor:
     """Solve one level for every element: planes (B, s^2, ph, pw), points
     (B, 3, H', W') with NaN at invalid depth, gray_prev (B, H', W'),
     jac_planes (B, 6, H', W'), scal (B, 40) -> (B, 48) rows (layouts in
-    ``csrc/level_solver.cu``).  ``illum_affine`` takes precedence over
+    ``csrc/level_solver.cu``).  ``n_blocks`` row blocks, or with
+    ``n_blocks_x`` > 1 ``n_blocks`` x ``n_blocks_x`` tiles, each with its
+    own window and centre (``shiftwarp.window_layout``; planes (B, blocks,
+    s^2, ph, pw), scal (B, 40 + 2 blocks)), inside the ball |du| < r,
+    |dv| < ``radius_y`` (default ``radius``).  ``illum_affine`` takes precedence over
     ``illum_bias``.  ``depth_planes`` (B, s^2, ph, pw), the current depth's
     frozen window at the same centres, with ``zgrad`` (B, 2, H', W'), the
     previous depth's gradients, add the depth term (``depth_weight``,
@@ -818,13 +887,16 @@ def lm_level(
     anchor of ``scal`` (``reference_prior_energy``: the reference's energy
     term), as ``lm_level_pallas`` takes them.  CUDA tensors run the kernel,
     CPU tensors the plain version."""
+    hp, wp = points.shape[-2], points.shape[-1]
+    layout = window_layout(hp, wp, radius, grid_stride, n_blocks, n_blocks_x, radius_y)
     args = (planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
             image_h, image_w, dof, unroll, use_tweights, normalize_scale,
             tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
             max_iterations, illum_bias, illum_affine, depth_planes, zgrad, sigma,
-            reference_prior_energy, depth_weight, depth_huber_delta)
+            reference_prior_energy, depth_weight, depth_huber_delta, n_blocks, n_blocks_x,
+            radius_y)
     check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius,
-                 depth_planes, zgrad)
+                 depth_planes, zgrad, layout)
     if points.device.type == "cuda":
         return _launch(*args)
     if points.device.type == "cpu":
@@ -833,6 +905,8 @@ def lm_level(
 
 
 lm_level.launches = 0
+lm_level.block_launches = 0  # of them, with row blocks
+lm_level.tile_launches = 0  # of them, with tiles
 
 
 def level_inputs(
@@ -847,11 +921,12 @@ def level_inputs(
     grid_stride: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's per-element inputs: -> (points (B, 3, H', W'), scal
-    (B, 40)).
+    (B, 40), or (B, 40 + 2 blocks) with blocks).
 
     depth_prev_m (B, H', W') on the strided grid; cu / cv (B,) int32 window
-    centres; intrinsics (3, 3) or (B, 3, 3); estimate0 / anchor0 (B, 4, 4);
-    wlam0 (B,); rel (B,) relative tolerance or None.
+    centres, or one per block: (B, blocks) or (B, nby, nbx); intrinsics
+    (3, 3) or (B, 3, 3); estimate0 / anchor0 (B, 4, 4); wlam0 (B,); rel (B,)
+    relative tolerance or None.
     """
     b, hp, wp = depth_prev_m.shape
     dev = depth_prev_m.device
@@ -878,7 +953,10 @@ def level_inputs(
         dim=1,
     ).contiguous()
 
-    scal = torch.zeros((b, IN_COLS), dtype=torch.float32, device=dev)
+    cu = cu.reshape(b, -1).to(torch.float32)
+    cv = cv.reshape(b, -1).to(torch.float32)
+    n = cu.shape[1]
+    scal = torch.zeros((b, IN_COLS + (2 * n if n > 1 else 0)), dtype=torch.float32, device=dev)
     scal[:, 0:16] = torch.broadcast_to(estimate0, (b, 4, 4)).reshape(b, 16)
     scal[:, 16:32] = torch.broadcast_to(anchor0, (b, 4, 4)).reshape(b, 16)
     scal[:, 32] = torch.broadcast_to(wlam0, (b,))
@@ -886,16 +964,20 @@ def level_inputs(
     scal[:, 34] = kmat[:, 1, 1]
     scal[:, 35] = kmat[:, 0, 2]
     scal[:, 36] = kmat[:, 1, 2]
-    scal[:, 37] = cu.to(torch.float32)
-    scal[:, 38] = cv.to(torch.float32)
+    if n > 1:
+        scal[:, IN_COLS:IN_COLS + n] = cu
+        scal[:, IN_COLS + n:] = cv
+    else:
+        scal[:, 37] = cu[:, 0]
+        scal[:, 38] = cv[:, 0]
     scal[:, 39] = -1.0 if rel is None else torch.broadcast_to(rel, (b,))
     return points, scal
 
 
 class LevelInputs(NamedTuple):
     """The level kernel's inputs as :func:`solve_level_fused` passed them;
-    the fused kernel evaluates a pose on the first five (it has no depth
-    term)."""
+    the fused kernel evaluates a pose on the first five, with one window
+    centre (it has no depth term, row blocks or tiles)."""
 
     planes: torch.Tensor
     points: torch.Tensor
@@ -909,7 +991,8 @@ class LevelInputs(NamedTuple):
 def with_window(
     inputs: LevelInputs, planes: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor
 ) -> LevelInputs:
-    """``inputs`` with another window: its planes and its centres (B,)."""
+    """``inputs`` (one window centre per element) with another window: its
+    planes and its centres (B,)."""
     scal = inputs.scal.clone()
     scal[:, 37] = cu.to(torch.float32)
     scal[:, 38] = cv.to(torch.float32)
@@ -950,15 +1033,21 @@ def solve_level_fused(
     reference_prior_energy: bool = False,
     depth_weight: float = 1.0,
     depth_huber_delta: float = 0.03,
+    n_blocks: int = 1,
+    n_blocks_x: int = 1,
+    radius_y: Optional[int] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Batched wrapper: one level solved in one launch.
 
     depth_prev_m / gray_prev (B, H', W') on the strided grid; planes
-    (B, s^2, ph, pw) frozen windows around cu / cv (B,) int32; the rest as
-    :func:`level_inputs`; the depth term and the prior as :func:`lm_level`
-    takes them.  -> (est, anchor, wlam, err, count, iterations, inputs),
-    iterations being the batch maximum (a 0-d int32 tensor) and inputs the
-    kernel's :class:`LevelInputs`.
+    (B, s^2, ph, pw) frozen windows around cu / cv (B,) int32, or with row
+    blocks or tiles (``n_blocks``, ``n_blocks_x``, ``radius_y`` as
+    :func:`lm_level` takes them) (B, blocks, s^2, ph, pw) around cu / cv
+    (B, blocks) or (B, nby, nbx); the rest as :func:`level_inputs`; the
+    depth term and the prior as :func:`lm_level` takes them.  -> (est,
+    anchor, wlam, err, count, iterations, inputs), iterations being the
+    batch maximum (a 0-d int32 tensor) and inputs the kernel's
+    :class:`LevelInputs`.
     """
     b = gray_prev.shape[0]
     points, scal = level_inputs(
@@ -984,6 +1073,7 @@ def solve_level_fused(
         lm_lambda0=lm_lambda0, lm_up=lm_up, lm_down=lm_down,
         lm_lambda_max=lm_lambda_max, max_iterations=max_iterations,
         illum_bias=illum_bias, illum_affine=illum_affine,
+        n_blocks=n_blocks, n_blocks_x=n_blocks_x, radius_y=radius_y,
     )
     est = out[:, 0:16].reshape(b, 4, 4).clone()
     anchor = out[:, 16:32].reshape(b, 4, 4).clone()

@@ -14,14 +14,104 @@ ball, tent-tap accumulation over the window equals bilinear sampling.
 The window is stored as ``s^2`` parity planes so that the tap at window row
 ``a + s*i`` and column ``b + s*j`` is
 ``planes[(a % s) * s + b % s][a // s + i, b // s + j]``.
+
+With row blocks or 2-D tiles (``ops/blockwarp.py``) every block of grid
+pixels has its own centre and its own window, and the ball may be
+anisotropic (``|du| < r, |dv| < r_y``): :class:`WindowLayout` says how the
+grid is cut, and :func:`tent_sample` samples each pixel from its block's
+window.  One centre is the layout of a single block.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def block_layout(grid_hp: int, n_blocks: int, radius_y: int, grid_stride: int
+                 ) -> Tuple[int, int, int]:
+    """-> (blocks, grid rows per block, halo rows) of ``n_blocks`` row blocks
+    over ``grid_hp`` grid rows: the count is clamped to the rows, each block
+    takes ``t`` = ceil(H' / count) rows (the last may be short), and the
+    count follows from ``t`` (9 rows in 4 blocks: 3 blocks of 3).  The halo,
+    2 r_y // s, is how many plane rows a block's window holds beyond its own
+    ``t``.  JAX ``ops/pallas/stackwarp.block_layout``."""
+    nblk = max(1, min(n_blocks, grid_hp))
+    t = -(-grid_hp // nblk)
+    nblk = -(-grid_hp // t)
+    return nblk, t, (2 * radius_y) // grid_stride
+
+
+def tile_layout(grid_hp: int, grid_wp: int, n_blocks_y: int, n_blocks_x: int, radius: int,
+                radius_y: int, grid_stride: int) -> Tuple[int, int, int, int, int, int]:
+    """-> (nby, t_y, halo_y, nbx, t_x, halo_x): :func:`block_layout` on the
+    rows with the vertical radius and on the columns with the horizontal
+    one.  JAX ``ops/pallas/stackwarp.tile_layout``."""
+    nby, t_y, halo_y = block_layout(grid_hp, n_blocks_y, radius_y, grid_stride)
+    nbx, t_x, halo_x = block_layout(grid_wp, n_blocks_x, radius, grid_stride)
+    return nby, t_y, halo_y, nbx, t_x, halo_x
+
+
+class WindowLayout(NamedTuple):
+    """How a level's H' x W' grid is cut into blocks, each sampled from a
+    window of its own: ``nby`` x ``nbx`` blocks of ``t_y`` x ``t_x`` grid
+    pixels (the last row and column of blocks may be short), block
+    ``(k, l)`` = ``k * nbx + l`` holding pixels ``[k t_y, (k+1) t_y) x
+    [l t_x, (l+1) t_x)``; each window is ``s^2`` parity planes of ``ph`` x
+    ``pw`` = ``t_y + 2 r_y // s`` x ``t_x + 2 r // s``.  One block is the
+    single-centre window (``extract_parity_planes``)."""
+
+    nby: int
+    t_y: int
+    nbx: int
+    t_x: int
+    ph: int
+    pw: int
+    radius: int  # horizontal tap radius r
+    radius_y: int  # vertical tap radius r_y
+
+    @property
+    def blocks(self) -> int:
+        return self.nby * self.nbx
+
+    @property
+    def tiles(self) -> bool:
+        """A 2-D tile mosaic (``recenter_col_blocks``), not row blocks."""
+        return self.nbx > 1
+
+
+def window_layout(grid_hp: int, grid_wp: int, radius: int, grid_stride: int,
+                  n_blocks: int = 1, n_blocks_x: int = 1,
+                  radius_y: Optional[int] = None) -> WindowLayout:
+    """The layout of ``n_blocks`` row blocks, or with ``n_blocks_x`` > 1 of
+    ``n_blocks`` x ``n_blocks_x`` tiles, as the JAX package's level solver
+    cuts a level (``solve_level_fused``); ``radius_y`` (default ``radius``)
+    is the vertical tap radius, which needs blocks or tiles."""
+    ry = radius if radius_y is None else radius_y
+    s = grid_stride
+    if n_blocks_x > 1:
+        nby, t_y, halo_y, nbx, t_x, halo_x = tile_layout(
+            grid_hp, grid_wp, n_blocks, n_blocks_x, radius, ry, s)
+    elif n_blocks > 1:
+        nby, t_y, halo_y = block_layout(grid_hp, n_blocks, ry, s)
+        nbx, t_x, halo_x = 1, grid_wp, (2 * radius) // s
+    else:
+        if ry != radius:
+            raise ValueError("an anisotropic ball (radius_y) needs row blocks or tiles")
+        nby, t_y, halo_y = 1, grid_hp, (2 * radius) // s
+        nbx, t_x, halo_x = 1, grid_wp, (2 * radius) // s
+    return WindowLayout(nby, t_y, nbx, t_x, t_y + halo_y, t_x + halo_x, radius, ry)
+
+
+def block_index(layout: WindowLayout, hp: int, wp: int, device):
+    """-> (block (H', W') int64, local row (H',) and column (W',)) of every
+    grid pixel: its block ``k * nbx + l`` and its place in that block."""
+    row = torch.arange(hp, device=device)
+    col = torch.arange(wp, device=device)
+    k, l = row // layout.t_y, col // layout.t_x
+    return k[:, None] * layout.nbx + l[None, :], row - k * layout.t_y, col - l * layout.t_x
 
 
 def _grid_displacements(u, v, grid_stride):
@@ -164,51 +254,65 @@ def tent_sample(
     dv: torch.Tensor,
     radius: int,
     grid_stride: int,
+    layout: Optional[WindowLayout] = None,
 ) -> torch.Tensor:
     """Tent-tap accumulation over the frozen window: planes (B, s^2, ph, pw),
-    centre-relative displacements du, dv (B, H', W') -> (B, H', W').
+    centre-relative displacements du, dv (B, H', W') -> (B, H', W').  With
+    ``layout`` (blocks or tiles) planes are (B, blocks, s^2, ph, pw), each
+    pixel is sampled from its block's window at its place in the block, and
+    the vertical taps reach ``layout.radius_y``.
 
     The plain version of the kernels' sampling (``csrc/dvo_common.cuh``):
-    the (2r+1)^2-tap sweep of the TPU kernels has at most four non-zero
+    the (2r_y+1)(2r+1)-tap sweep of the TPU kernels has at most four non-zero
     taps, at floor(d) and floor(d) + 1 on each axis; those are gathered
     from the parity planes and added in the sweep's order (rows ascending;
     within a row the even column-parity plane first at stride 2).  Taps
-    outside [-r, r] carry no weight; a NaN displacement gives NaN.
+    outside [-r_y, r_y] x [-r, r] carry no weight; a NaN displacement gives
+    NaN.
     """
     s = grid_stride
-    b, _, ph, pw = planes.shape
+    b = planes.shape[0]
+    ph, pw = planes.shape[-2], planes.shape[-1]
     hp, wp = du.shape[-2], du.shape[-1]
     dev = planes.device
+    rx = radius
+    ry = radius if layout is None else layout.radius_y
     flat = planes.reshape(b, -1)
-    ii = torch.arange(hp, device=dev)[None, :, None]
-    jj = torch.arange(wp, device=dev)[None, None, :]
+    if layout is None or layout.blocks == 1:
+        base = torch.zeros((), dtype=torch.int64, device=dev)
+        ii = torch.arange(hp, device=dev)[None, :, None]
+        jj = torch.arange(wp, device=dev)[None, None, :]
+    else:
+        blk, il, jl = block_index(layout, hp, wp, dev)
+        base = (blk * (s * s * ph * pw))[None]
+        ii, jj = il[None, :, None], jl[None, None, :]
     fy = torch.floor(dv)
     fx = torch.floor(du)
     # Integer taps, clamped so that out-of-range (or non-finite) ones index
     # safely; their terms are dropped below.
-    ky0 = torch.clamp(torch.nan_to_num(fy), -radius - 1, radius + 1).to(torch.int64)
-    kx0 = torch.clamp(torch.nan_to_num(fx), -radius - 1, radius + 1).to(torch.int64)
+    ky0 = torch.clamp(torch.nan_to_num(fy), -ry - 1, ry + 1).to(torch.int64)
+    kx0 = torch.clamp(torch.nan_to_num(fx), -rx - 1, rx + 1).to(torch.int64)
 
     def terms(ky, kyf):
-        have_y = (kyf >= -radius) & (kyf <= radius)
+        have_y = (kyf >= -ry) & (kyf <= ry)
         wy = torch.clamp(1.0 - torch.abs(dv - kyf), min=0.0)
-        a = torch.clamp(radius + ky, 0, 2 * radius)
+        a = torch.clamp(ry + ky, 0, 2 * ry)
         out = []
         for t in range(2):
             kx = kx0 + t
             kxf = fx + float(t)
-            have = have_y & (kxf >= -radius) & (kxf <= radius)
+            have = have_y & (kxf >= -rx) & (kxf <= rx)
             wx = torch.clamp(1.0 - torch.abs(du - kxf), min=0.0)
-            bb = torch.clamp(radius + kx, 0, 2 * radius)
+            bb = torch.clamp(rx + kx, 0, 2 * rx)
             plane = (a % s) * s + bb % s
-            idx = (plane * ph + (a // s + ii)) * pw + (bb // s + jj)
+            idx = base + (plane * ph + (a // s + ii)) * pw + (bb // s + jj)
             val = torch.gather(flat, 1, idx.reshape(b, -1)).reshape(b, hp, wp)
             term = (wy * wx) * val
             out.append((have, term))
         return out
 
     acc = torch.zeros_like(du)
-    swap = (s == 2) & ((radius + kx0) % 2 == 1)
+    swap = (s == 2) & ((rx + kx0) % 2 == 1)
     for t in range(2):
         (h0, t0), (h1, t1) = terms(ky0 + t, fy + float(t))
         first_h = torch.where(swap, h1, h0)

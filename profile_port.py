@@ -11,7 +11,8 @@ Run from the root of a checkout on a machine with a CUDA GPU and nvcc:
 CONFIG is ``tpu_fast`` (the default), any other name under ``configs/``, or
 one of ``chip_smoke.VARIANTS`` (``parity_affine``, ``parity_esm``,
 ``accurate_lm``, ``fast_prior``, whose batched pairs are anchored as the
-smoke anchors them, ``fast_depth``).  Builds the kernels, then profiles, over the seeded
+smoke anchors them, ``fast_depth``, ``fast_blocks_ry2``, ``parity_tiles_r2``,
+``slam_tiles_cb48``).  Builds the kernels, then profiles, over the seeded
 640x480 scene of ``chip_smoke.py``, ``batched_track_pair`` at B=64 over all
 15 consecutive pairs and, where the configuration has level-kernel levels,
 over the pairs that its hard-motion trigger passes at each of them
@@ -25,7 +26,8 @@ profiled run's result equals the warm-up's bit for bit.
 
 ``--kernels`` instead times the level, fused and stack kernels on the
 inputs of ``chip_smoke.py``'s kernel checks (levels 0 and 3, B=1, 8 and 64,
-every illumination variant and stopping rule of the level kernel; the fused
+every illumination variant and stopping rule of the level kernel, and its
+depth and prior cases; the fused
 kernel at level 0 without illumination and with the bias; ``F.grid_sample``
 beside the stack kernel) with its yardstick ``chip_smoke.time_ms``, one
 JSON line each, and says how far each level-kernel run is from the plain
@@ -46,7 +48,8 @@ sessions host to host with ``chip_smoke.run_batched`` and
 change can be alternated in one call.
 
 ``--bits`` finds where the level kernel and its plain version part on the
-smoke's cases that are not bit-equal (``chip_smoke.LAST_BIT_CASES``): for
+smoke's cases that are not bit-equal (``chip_smoke.LAST_BIT_CASES``, the
+single-centre, block and tile ones): for
 each iteration cap the columns and elements of the result rows that differ
 bit for bit, and at the first cap where they part (and the cap before it)
 the same against the plain version with every sum over the pixels added
@@ -145,25 +148,28 @@ def fused_timing(prev, curr, gt, cam, dev, illum):
 
 
 def kernel_times(frames, poses, cam, dev) -> None:
-    """``--kernels``: the level, fused and stack kernels' times, one line each."""
+    """``--kernels``: the level, fused and stack kernels' times, one line each
+    (the level kernel also with the depth term and the prior,
+    ``chip_smoke.TERM_CASES``)."""
     for batch in cs.KERNEL_BATCHES:
-        prev, curr, gt, _ = cs.kernel_batch(frames, poses, dev, batch)
+        prev, curr, gt, pairs = cs.kernel_batch(frames, poses, dev, batch)
+        anchors = cs.previous_motions(poses, pairs, dev)
         for level in (0, cs.LEVELS - 1):
-            for illum in (None, "bias", "affine"):
-                for rel in (0.01, None):
-                    args, kwargs = cs.level_case(prev, curr, gt, cam, dev, level, illum, rel)
-                    out_k = cs.lm_level(*args, **kwargs)
-                    ok, errs, differing = cs.level_agrees(
-                        out_k, cs.lm_level_plain(*args, **kwargs))
-                    ms = cs.time_ms(lambda: cs.lm_level(*args, **kwargs), 10, dev)
-                    print(json.dumps({
-                        "kernel": "level_solver", "batch": batch, "level": level,
-                        "illumination": illum, "rel": rel,
-                        "iterations": int(out_k[:, 36].max()), "ms": ms,
-                        "agrees_with_plain": ok, "elements_differing": differing,
-                        **{f"{k}_max_abs": errs[k]["max_abs"]
-                           for k in ("est", "count", "iterations")},
-                    }), flush=True)
+            cases = [(None, illum, rel) for illum in (None, "bias", "affine")
+                     for rel in (0.01, None)]
+            for term, illum, rel in cases + list(cs.TERM_CASES):
+                args, kwargs = cs.level_case(prev, curr, gt, cam, dev, level, illum, rel,
+                                             term=term, anchors=anchors)
+                out_k = cs.lm_level(*args, **kwargs)
+                ok, errs, differing = cs.level_agrees(out_k, cs.lm_level_plain(*args, **kwargs))
+                ms = cs.time_ms(lambda: cs.lm_level(*args, **kwargs), 10, dev)
+                print(json.dumps({
+                    "kernel": "level_solver", "batch": batch, "level": level,
+                    "illumination": illum, "rel": rel, "term": term,
+                    "iterations": int(out_k[:, 36].max()), "ms": ms,
+                    "agrees_with_plain": ok, "elements_differing": differing,
+                    **{f"{k}_max_abs": errs[k]["max_abs"] for k in ("est", "count", "iterations")},
+                }), flush=True)
             if level == 0:
                 for illum in (None, "bias"):
                     fn, inputs = fused_timing(prev, curr, gt, cam, dev, illum)
@@ -207,11 +213,17 @@ def bit_partings(frames, poses, cam, dev) -> None:
         return {"columns": sorted(set(neq.nonzero()[:, 1].tolist())),
                 "elements": sorted(set(neq.nonzero()[:, 0].tolist()))}
 
-    for level, batch, illum, term in sorted(cs.LAST_BIT_CASES, key=str):
+    for case in sorted(cs.LAST_BIT_CASES, key=str):
+        # tpu_fast's cases are (level, batch, illumination, term); the
+        # block and tile cases name their configuration first.
+        cfg_name, level, batch, illum, term = case if len(case) == 5 else ("tpu_fast", *case)
         prev, curr, gt, pairs = cs.kernel_batch(frames, poses, dev, batch)
-        rel = next(r for t, i, r in cs.TERM_CASES if (t, i) == (term, illum))
-        args, kwargs = cs.level_case(prev, curr, gt, cam, dev, level, illum, rel, term=term,
-                                     anchors=cs.previous_motions(poses, pairs, dev))
+        if cfg_name == "tpu_fast":
+            rel = next(r for t, i, r in cs.TERM_CASES if (t, i) == (term, illum))
+        else:
+            rel = cs.config(cfg_name).relative_tolerance
+        args, kwargs = cs.level_case(prev, curr, gt, cam, dev, level, illum, rel, cfg_name,
+                                     term=term, anchors=cs.previous_motions(poses, pairs, dev))
         cpu_args = [a.cpu() for a in args]
         cpu_kw = {n: v.cpu() if isinstance(v, torch.Tensor) else v for n, v in kwargs.items()}
         def exact(cap):
@@ -223,8 +235,8 @@ def bit_partings(frames, poses, cam, dev) -> None:
             capped = dict(kwargs, max_iterations=cap)
             k = cs.lm_level(*args, **capped).cpu()
             p = cs.lm_level_plain(*args, **capped).cpu()
-            row = {"level": level, "batch": batch, "illumination": illum, "term": term,
-                   "cap": cap, "kernel_vs_plain": parted(k, p)}
+            row = {"config": cfg_name, "level": level, "batch": batch, "illumination": illum,
+                   "term": term, "cap": cap, "kernel_vs_plain": parted(k, p)}
             if not parted_yet and row["kernel_vs_plain"]["columns"]:
                 parted_yet = True
                 e = exact(cap)

@@ -183,11 +183,12 @@ def _blank_frames():
 
 @pytest.mark.parametrize(
     "change",
-    [{"recenter_blocks": 2}, {"grid_strides": (3, 2, 1, 1)}],
+    [{"grid_strides": (3, 2, 1, 1)}],
     ids=lambda d: next(iter(d)),
 )
 def test_unported_branches_raise(change):
-    """Branches no shipped configuration takes raise, naming port queue item 1."""
+    """Branches no shipped configuration takes raise, naming port queue item
+    1: grid strides other than 1 and 2 where a kernel samples the level."""
     base = TConfig.from_json(CONFIGS / "tpu_fast.json").__dict__
     cfg = TConfig(**{**base, **change})
     frames = _blank_frames()
@@ -213,6 +214,8 @@ def test_esm_on_an_unfrozen_fused_level_is_refused(config_class):
         {"use_fused_iteration": False}, {"shift_stack_levels": (0, 1)},
         {"shift_stack_levels": (0, 1, 2), "grid_strides": (2, 2, 1, 3)},
         {"sigma": 1.0}, {"use_depth_residuals": True},
+        {"recenter_blocks": 2}, {"recenter_blocks": 3, "shift_stack_radius_y": 2},
+        {"recenter_blocks": 2, "recenter_col_blocks": 2, "recenter_center_bound": 20},
     ],
     ids=lambda d: "_".join(d),
 )
