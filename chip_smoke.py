@@ -22,13 +22,17 @@ Phases, each printing one JSON line:
    row-block and tile variants (``BLOCK_CASES``: ``fast_blocks_ry2``'s 6 row
    blocks with the vertical radius 2, ``parity_tiles_r2``'s and
    ``slam_tiles_cb48``'s 8 x 10 tiles, without illumination, with the bias
-   and, on tiles, with the depth term), each with
+   and, on tiles, with the depth term), and its runtime-stride variant at
+   level 0 at grid strides 3 and 4 (``STRIDE_LEVEL_CASES``: without
+   illumination, with the bias, with affine, with the depth term, and on
+   8 x 10 tiles), each with
    the launch geometry it chose (cluster size, pixels per CTA, shared bytes,
    resident or streamed inputs, the clusters the card holds at once); the
    fused kernel at level 0 and at levels 1 and 2 of ``tpu_accurate``
    (``FUSED_LEVELS``) for the same batch sizes, without illumination and
-   with the bias, on the level kernel's inputs, with its geometry; the
-   stack kernel at levels 0 and 3 for the same batch sizes; at B=8 and 64
+   with the bias, on the level kernel's inputs, with its geometry, and at
+   level 0 at strides 3 and 4; the stack kernel at levels 0 and 3 and at
+   level 0 at strides 3 and 4, for the same batch sizes; at B=8 and 64
    the level kernel (levels 0 and 3) and the fused kernel (level 0) also at
    every cluster size and input residency that fits, timed.  The level and
    fused kernels run each case twice and must repeat bit for bit, and up to
@@ -47,8 +51,11 @@ Phases, each printing one JSON line:
    pair anchored at the previous pair's true motion) and with the depth term
    (``fast_depth``), with row blocks and the vertical radius 2
    (``fast_blocks_ry2``), ``tpu_parity`` with 8 x 10 tiles at radius 2
-   (``parity_tiles_r2``) and ``tpu_slam`` with 8 x 10 tiles
-   (``slam_tiles_cb48``), each over all 15 pairs and, but for ``tpu_parity`` and
+   (``parity_tiles_r2``), ``tpu_slam`` with 8 x 10 tiles
+   (``slam_tiles_cb48``), ``tpu_fast`` at grid strides (3, 2, 1, 1) and
+   (4, 2, 1, 1) (``fast_stride3``, ``fast_stride4``) and the parity tier
+   with ESM gradients at (4, 2, 1, 1) (``esm_stride4``), each over all 15
+   pairs and, but for ``tpu_parity`` and
    ``reference_default``, over the pairs that stay on the level kernel at
    every level that has it; ``accurate_lm`` (``tpu_accurate`` with the level
    kernel off: one fused launch per LM iteration) over the kernel-path pairs
@@ -57,15 +64,25 @@ Phases, each printing one JSON line:
    ``fast_prior``, ``fast_depth`` and ``slam_tiles_cb48``; and a 16-frame
    ``BatchedOdometrySession`` of 8 streams on ``tpu_accurate``, over a seeded
    synthetic 640x480 scene with exact ground truth; the kernels' launch counts
-   (and the level kernel's row-block and tile launches among them) are
-   zeroed just before this phase and read just after it; two pairs of each
-   configuration, and of ``reference_prior`` (``reference_default`` with the
-   reference oracle's binding prior), are cross-checked against the port's
-   CPU plain path.
+   (and the level kernel's row-block and tile launches, and each kernel's
+   launches at a grid stride >= 3, among them) are zeroed just before this
+   phase and read just after it; two pairs of each configuration, and of
+   ``reference_prior`` (``reference_default`` with the reference oracle's
+   binding prior), are cross-checked against the port's CPU plain path;
+5. the command-line path: ``apps.make_dataset --source synthetic --motion
+   handheld-fr1`` writes 30 frames at 640x480 into a temporary directory,
+   ``apps.benchmark`` tracks it on the card under ``tpu_fast``,
+   ``fast_stride4`` and ``esm_stride4`` and writes ``report.json`` and
+   ``trajectory.txt``, ``apps.evaluate`` re-reads the trajectory (its ATE
+   must be the report's), ATE and RPE within ``CLI_BOUNDS``, with its own
+   launch counts; it prints the PNG read route, frames/s and ms per frame
+   on lines of their own.
 
 Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers (the
 level kernel's row with a ``variants`` entry for its depth, prior, row-block
-and tile variants), and last ``{"ok": true, "device": {...}}``.  A failed check raises and exits
+and tile variants; each kernel's with a ``strides`` entry for its
+runtime-stride variant at strides 3 and 4, and its ``cli_launches``), and
+last ``{"ok": true, "device": {...}}``.  A failed check raises and exits
 non-zero before that line; without a GPU the script exits non-zero at once.
 """
 
@@ -168,19 +185,23 @@ TOLERANCES = {"pose_atol": 1e-4, "sum_rtol": 1e-4, "scale_rtol": 1e-3,
 # but these, which part in the last bits on the smoke's data and are held to
 # TOLERANCES instead: tpu_fast's (level, batch, illumination, term) and the
 # block and tile cases' (configuration, level, batch, illumination, term).
-# Float64 does not add every sum exactly (the depth term's span too many
-# binades), and there one float64 total, which the kernel and the plain
-# version add in different orders, rounds to float32 the other way: at the
-# first iteration where they part, the plain version with exact sums equals
-# the plain version's row and not the kernel's (``profile_port.py --bits``;
-# with the depth term neither side's sums are exact, and the two part on one
-# element).  In the reference-energy prior case and the two parity_tiles_r2
-# cases it is a photometric total (the t-scale lambda and the error), not
-# the prior or the tiles.
+# Float64 does not add every sum exactly, and there one float64 total,
+# which the kernel and the plain version add in different orders, rounds to
+# float32 the other way.  ``profile_port.py --bits`` shows it for each case:
+# at the first iteration where they part (the state before it equal on both
+# sides), the plain version on the card with that iteration's sums added
+# exactly (``math.fsum``, rounded once) equals the plain version's row bit
+# for bit, and the kernel's row sits 1 or 2 float32 steps away, on one
+# element, in the t-scale lambda and the error (columns 32 and 34; with the
+# depth term and bias at level 3 in the Hessian's entries too).  Every case
+# below reads so.
 LAST_BIT_CASES = {(0, 8, None, "depth"), (3, 1, "bias", "depth"), (3, 8, "bias", "depth"),
                   (0, 8, None, "prior_reference"),
                   ("parity_tiles_r2", 0, 8, None, None), ("parity_tiles_r2", 0, 8, "bias", None),
-                  ("slam_tiles_cb48", 0, 8, None, "depth")}
+                  ("slam_tiles_cb48", 0, 8, None, "depth"),
+                  ("fast_stride3", 0, 8, "bias", None), ("tiles_stride3", 0, 8, None, None),
+                  ("fast_stride4", 0, 8, None, None), ("fast_stride4", 0, 8, "affine", None),
+                  ("fast_stride4", 0, 8, None, "depth"), ("tiles_stride4", 0, 8, None, None)}
 # Tracking-error bounds of the main path (per pair: median and largest
 # translation error, largest rotation error; drift over a 16-frame
 # session).  By default several times what the JAX package and the port's
@@ -192,11 +213,17 @@ LAST_BIT_CASES = {(0, 8, None, "depth"), (3, 1, "bias", "depth"), (3, 8, "bias",
 # previous pair's true motion: median 0.64 mm, max 12.6 mm, 0.44 deg; a
 # session, whose constant-velocity start is its anchor too: 61.2 mm
 # drift), and with the depth term median 0.66 mm, max 0.79 mm, 0.026 deg,
-# 8.0 mm drift.
+# 8.0 mm drift.  The grid-stride variants' are three times the JAX
+# package's errors on the same scene too: fast_stride3 median 0.034 mm, max
+# 0.105 mm, 0.0038 deg, 0.58 mm drift; fast_stride4 0.023, 0.117 mm, 0.0042
+# deg, 0.55 mm; esm_stride4 0.018, 0.045 mm, 0.0015 deg, 0.11 mm.
 BOUNDS = {
     "default": {"median_mm": 0.5, "max_mm": 2.0, "rotation_deg": 0.1, "drift_mm": 2.0},
     "fast_prior": {"median_mm": 2.0, "max_mm": 38.0, "rotation_deg": 1.4, "drift_mm": 184.0},
     "fast_depth": {"median_mm": 2.0, "max_mm": 2.4, "rotation_deg": 0.08, "drift_mm": 24.0},
+    "fast_stride3": {"median_mm": 0.11, "max_mm": 0.32, "rotation_deg": 0.012, "drift_mm": 1.8},
+    "fast_stride4": {"median_mm": 0.07, "max_mm": 0.36, "rotation_deg": 0.013, "drift_mm": 1.7},
+    "esm_stride4": {"median_mm": 0.055, "max_mm": 0.14, "rotation_deg": 0.0045, "drift_mm": 0.35},
 }
 # The shipped configurations on the main path, read verbatim from configs/.
 SHIPPED = ("tpu_fast", "tpu_parity", "tpu_slam", "tpu_accurate", "tpu_accurate_illum",
@@ -219,6 +246,33 @@ VARIANTS = {
     "slam_tiles_cb48": ("tpu_slam", {"recenter_blocks": 8, "recenter_col_blocks": 10,
                                      "fallback_max_rotation": 0.25,
                                      "recenter_center_bound": 48}),
+    # Grid strides 3 and 4 at level 0 (the kernels' runtime-stride variant):
+    # the fast tier on a 160x214 or 120x160 level-0 grid, and the parity
+    # tier with ESM gradients, whose ESM levels sample through the stack
+    # kernel, at stride 4.
+    "fast_stride3": ("tpu_fast", {"grid_strides": [3, 2, 1, 1]}),
+    "fast_stride4": ("tpu_fast", {"grid_strides": [4, 2, 1, 1]}),
+    "esm_stride4": ("tpu_parity", {"use_esm_gradients": True, "esm_levels": [0, 1, 2],
+                                   "esm_fallback_max_rotation": 0.25,
+                                   "grid_strides": [4, 2, 1, 1]}),
+}
+# Phase 3 only: the level kernel's tiles at strides 3 and 4 (the JAX
+# package refuses tiles at a stride above 2 in its tracker; its level kernel
+# takes them).
+KERNEL_ONLY = {
+    f"tiles_stride{s}": ("tpu_fast", {"recenter_blocks": 8, "recenter_col_blocks": 10,
+                                      "grid_strides": [s, 2, 1, 1]})
+    for s in (3, 4)
+}
+# The runtime-stride variants in phase 3, at level 0, for each stride:
+# the level kernel's (configuration, illumination, term) cases, and the
+# configuration of the fused and stack kernels' cases.
+STRIDES = (3, 4)
+STRIDE_LEVEL_CASES = {
+    s: ((f"fast_stride{s}", None, None), (f"fast_stride{s}", "bias", None),
+        (f"fast_stride{s}", "affine", None), (f"fast_stride{s}", None, "depth"),
+        (f"tiles_stride{s}", None, None))
+    for s in STRIDES
 }
 # Cross-checked against the CPU only: reference_default with the binding
 # prior of the reference oracle's ``approx_prior`` case
@@ -231,6 +285,23 @@ SESSIONS = ("tpu_fast", "parity_affine", "parity_esm", "tpu_accurate", "referenc
 # The Gauss-Newton loop (lm_lambda0 unset).
 GN_CONFIGS = ("reference_default", "reference_prior")
 STREAMS = 8  # streams of the batched session
+# The CLI phase: a TUM directory of CLI_FRAMES 640x480 frames written by
+# ``apps.make_dataset --source synthetic --motion handheld-fr1``, tracked by
+# ``apps.benchmark`` under each of CLI_CONFIGS (a shipped file, or a variant
+# written out as JSON).  Bounds on the report's ATE and RPE: three times what
+# the JAX package's own CLI reaches on the same directory on the CPU
+# (``python -m tests.jax_smoke_scene --cli``): ate_mm, rpe_mm (translation)
+# and rpe_deg (rotation), RMSE over the frames.  The JAX package's: tpu_fast
+# 2.571 mm, 0.386 mm, 0.0127 deg; fast_stride4 2.545 mm, 0.390 mm, 0.0127
+# deg; esm_stride4 1.206 mm, 0.195 mm, 0.0065 deg (the port's CPU run within
+# 3e-6 m of it on every pose).
+CLI_FRAMES = 30
+CLI_CONFIGS = ("tpu_fast", "fast_stride4", "esm_stride4")
+CLI_BOUNDS = {
+    "tpu_fast": {"ate_mm": 7.8, "rpe_mm": 1.2, "rpe_deg": 0.038},
+    "fast_stride4": {"ate_mm": 7.7, "rpe_mm": 1.2, "rpe_deg": 0.039},
+    "esm_stride4": {"ate_mm": 3.7, "rpe_mm": 0.59, "rpe_deg": 0.02},
+}
 
 
 def emit(obj) -> None:
@@ -282,7 +353,7 @@ def phase_build() -> dict:
     seconds = time.perf_counter() - t0
     registers = {
         n: [ln.strip() for ln in build.build_logs.get(n, "").splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "Compiling entry function" in ln or "registers" in ln or "spill" in ln]
         for n in names
     }
     return {
@@ -300,16 +371,17 @@ def phase_build() -> dict:
 
 
 def variant_config(name: str) -> RobustDVOConfig:
-    """A configuration of ``VARIANTS`` or ``CROSS_ONLY``: its shipped base
-    with overrides."""
-    base, overrides = {**VARIANTS, **CROSS_ONLY}[name]
+    """A configuration of ``VARIANTS``, ``CROSS_ONLY`` or ``KERNEL_ONLY``:
+    its shipped base with overrides."""
+    base, overrides = {**VARIANTS, **CROSS_ONLY, **KERNEL_ONLY}[name]
     data = json.loads((CONFIGS / f"{base}.json").read_text())
     return RobustDVOConfig.from_dict({**data, **overrides})
 
 
 def config(name: str) -> RobustDVOConfig:
-    """A shipped configuration or one of ``VARIANTS`` and ``CROSS_ONLY``."""
-    if name in VARIANTS or name in CROSS_ONLY:
+    """A shipped configuration or one of ``VARIANTS``, ``CROSS_ONLY`` and
+    ``KERNEL_ONLY``."""
+    if name in VARIANTS or name in CROSS_ONLY or name in KERNEL_ONLY:
         return variant_config(name)
     return RobustDVOConfig.from_json(CONFIGS / f"{name}.json")
 
@@ -591,8 +663,9 @@ def check_level_kernel(prev, curr, gt, cam, dev, level, illum, rel, term=None, a
     if b <= PLAIN_TIMED_MAX_BATCH:
         plain_ms = time_ms(lambda: lm_level_plain(*args, **kwargs), 2, dev)
     npx = points.shape[-2] * points.shape[-1]
-    inputs = list(args) + ([kwargs["depth_planes"], kwargs["zgrad"]] if depth else [])
-    nbytes = 4 * sum(t.numel() for t in inputs) + 4 * out_k.numel()
+    inputs = list(args[1:]) + ([kwargs["zgrad"]] if depth else [])
+    nbytes = (4 * sum(t.numel() for t in inputs) + 4 * out_k.numel()
+              + window_bytes(args, kwargs, 2 if depth else 1))
     per_valid = OPS_VALID + (OPS_DEPTH if depth else 0)
     ops = float(
         (out_k[:, 36].double() * (npx * OPS_WARP + out_k[:, 35].double() * per_valid)).sum()
@@ -665,7 +738,8 @@ def check_fused_kernel(prev, curr, gt, cam, dev, illum, level=0, cfg_name="tpu_f
     ms = time_ms(lambda: fused_iter.fused_evaluation(*args, **kwargs), 20, dev)
     plain_ms = time_ms(lambda: fused_iter.fused_evaluation_plain(*args, **kwargs), 3, dev)
     npx = points.shape[-2] * points.shape[-1]
-    nbytes = 4 * sum(t.numel() for t in args) + 4 * out_k.numel()
+    nbytes = (4 * sum(t.numel() for t in args[1:]) + 4 * out_k.numel()
+              + window_bytes(args, kwargs))
     ops = float(b * npx * OPS_WARP + out_k[:, 43].double().sum() * OPS_VALID)
     return {
         "phase": "kernel", "kernel": "fused_iter", "config": cfg_name, "level": level,
@@ -699,13 +773,14 @@ def check_fused_geometries(prev, curr, gt, cam, dev):
             "ok": all(r["ok"] for r in runs), "runs": runs}
 
 
-def stack_case(prev, curr, gt, cam, dev, level):
+def stack_case(prev, curr, gt, cam, dev, level, cfg_name="tpu_parity"):
     """The stack kernel's inputs: the frozen window of a level at its start
-    estimates under ``configs/tpu_parity.json``, the displacements of the
+    estimates under ``cfg_name`` (``configs/tpu_parity.json`` by default, a
+    stride variant's at strides 3 and 4), the displacements of the
     template grid, and ``F.grid_sample`` on the same samples (the library
     yardstick, bilinear, zeros outside the image): -> (args of
     ``stack_accumulate``, valid pixels, the library call)."""
-    cfg = RobustDVOConfig.from_json(CONFIGS / "tpu_parity.json")
+    cfg = config(cfg_name)
     s = cfg.stride_for_level(level)
     r = cfg.shift_stack_radius
     k = cam.at(level).to(dev)
@@ -728,9 +803,9 @@ def stack_case(prev, curr, gt, cam, dev, level):
     return args, in_ball & fl.valid_geom0, library
 
 
-def check_stack_kernel(prev, curr, gt, cam, dev, level):
+def check_stack_kernel(prev, curr, gt, cam, dev, level, cfg_name="tpu_parity"):
     """The stack kernel against ``tent_sample`` and ``F.grid_sample``."""
-    args, valid, library = stack_case(prev, curr, gt, cam, dev, level)
+    args, valid, library = stack_case(prev, curr, gt, cam, dev, level, cfg_name)
     planes, du, dv, r, s = args
     out_k = stack_accumulate(*args)
     out_p = tent_sample(*args)
@@ -749,10 +824,11 @@ def check_stack_kernel(prev, curr, gt, cam, dev, level):
     plain_ms = time_ms(lambda: tent_sample(*args), 5, dev)
     library_ms = time_ms(library, 20, dev)
     npx = du.numel()
-    nbytes = 4 * (planes.numel() + 3 * npx)
+    nbytes = 4 * 3 * npx + tap_bytes(planes, du, dv, r, r, s)
     ops = float(npx * OPS_STACK)
     return {
-        "phase": "kernel", "kernel": "stackwarp", "level": level, "grid_stride": s,
+        "phase": "kernel", "kernel": "stackwarp", "config": cfg_name, "level": level,
+        "grid_stride": s,
         "batch": du.shape[0], "shape": list(du.shape), "valid_pixels": int(valid.sum()),
         "ok": ok,
         "errors": errors,
@@ -760,6 +836,92 @@ def check_stack_kernel(prev, curr, gt, cam, dev, level):
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bytes": nbytes, "ops": ops, **bound(nbytes, ops),
     }
+
+
+def tap_bytes(planes, du, dv, radius, radius_y, s, valid=None, layout=None) -> int:
+    """Bytes of the window taps a sampling must read: each distinct tap
+    (floor(d) and floor(d) + 1 on each axis, inside [-r_y, r_y] x [-r, r],
+    with a non-zero tent weight) of the pixels in ``valid`` (every pixel
+    where None), once.  At strides 1 and 2 the pixels' taps cover about the
+    whole window; at stride s >= 3 a pixel reads 2 x 2 of the s^2 parity
+    planes' taps around it, and the rest of the window is never read."""
+    b, ph, pw = planes.shape[0], planes.shape[-2], planes.shape[-1]
+    hp, wp = du.shape[-2:]
+    dev = du.device
+    per_element = planes[0].numel()
+    if layout is None or layout.blocks == 1:
+        base = torch.zeros((), dtype=torch.int64, device=dev)
+        ii, jj = torch.arange(hp, device=dev)[:, None], torch.arange(wp, device=dev)[None, :]
+    else:
+        from dense_visual_odometry_torch.ops.shiftwarp import block_index
+
+        blk, il, jl = block_index(layout, hp, wp, dev)
+        base, ii, jj = blk * (s * s * ph * pw), il[:, None], jl[None, :]
+    finite = torch.isfinite(du) & torch.isfinite(dv)
+    keep0 = finite if valid is None else finite & valid
+    du, dv = torch.nan_to_num(du), torch.nan_to_num(dv)
+    fy, fx = torch.floor(dv), torch.floor(du)
+    element = torch.arange(b, device=dev)[:, None, None] * per_element
+    taps = []
+    for ty in (0, 1):
+        ky = fy + ty
+        wy = torch.clamp(1.0 - torch.abs(dv - ky), min=0.0)
+        for tx in (0, 1):
+            kx = fx + tx
+            wx = torch.clamp(1.0 - torch.abs(du - kx), min=0.0)
+            keep = (keep0 & (ky >= -radius_y) & (ky <= radius_y) & (kx >= -radius)
+                    & (kx <= radius) & (wy * wx > 0))
+            a = torch.clamp(radius_y + ky, 0, 2 * radius_y).long()
+            c = torch.clamp(radius + kx, 0, 2 * radius).long()
+            flat = (element + base + ((a % s) * s + c % s) * (ph * pw)
+                    + (a // s + ii) * pw + (c // s + jj))
+            taps.append(flat[keep])
+    return 4 * int(torch.unique(torch.cat(taps)).numel())
+
+
+def start_displacements(args, kwargs):
+    """The displacements of a level or fused case's template grid at the
+    pose of its scalar row, and the pixels its evaluation keeps (inside the
+    ball, in bounds, in front): -> (du, dv, valid, layout), as
+    ``level_solver.level_evaluation`` computes them."""
+    from dense_visual_odometry_torch.ops.shiftwarp import window_layout
+
+    planes, points, _, _, scal = args
+    hp, wp = points.shape[-2:]
+    s = kwargs["grid_stride"]
+    layout = window_layout(hp, wp, kwargs["radius"], s, kwargs.get("n_blocks", 1),
+                           kwargs.get("n_blocks_x", 1), kwargs.get("radius_y"))
+    est = [scal[:, k][:, None, None] for k in range(12)]
+    px, py, pz = points[:, 0], points[:, 1], points[:, 2]
+    xp = est[0] * px + est[1] * py + est[2] * pz + est[3]
+    yp = est[4] * px + est[5] * py + est[6] * pz + est[7]
+    zp = est[8] * px + est[9] * py + est[10] * pz + est[11]
+    in_front = zp > 1e-6
+    z_safe = torch.where(in_front, zp, torch.ones_like(zp))
+    fx, fy, cx, cy = (scal[:, k][:, None, None] for k in (33, 34, 35, 36))
+    u = (fx * xp + cx * zp) / z_safe
+    v = (fy * yp + cy * zp) / z_safe
+    cu, cv = level_solver.centre_maps(scal, layout, hp, wp)
+    col = torch.arange(wp, dtype=torch.float32, device=u.device)[None, None, :]
+    row = torch.arange(hp, dtype=torch.float32, device=u.device)[None, :, None]
+    du = u - (col * float(s) + cu)
+    dv = v - (row * float(s) + cv)
+    in_ball = ((du > -layout.radius) & (du < layout.radius) & (dv > -layout.radius_y)
+               & (dv < layout.radius_y))
+    in_bounds = ((torch.floor(u) >= 0) & (torch.floor(v) >= 0)
+                 & (torch.floor(u) + 1 <= kwargs["image_w"] - 1)
+                 & (torch.floor(v) + 1 <= kwargs["image_h"] - 1))
+    return du, dv, in_ball & in_bounds & in_front, layout
+
+
+def window_bytes(args, kwargs, windows: int = 1) -> int:
+    """The bytes of ``windows`` frozen windows (the photometric one, and with
+    the depth term the depth one, at the same taps) that a level or fused
+    case's evaluation at its start pose reads (``tap_bytes``); the level
+    kernel's later iterations move the pose by a fraction of a pixel."""
+    du, dv, valid, layout = start_displacements(args, kwargs)
+    return windows * tap_bytes(args[0], du, dv, layout.radius, layout.radius_y,
+                               kwargs["grid_stride"], valid, layout)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -895,6 +1057,120 @@ def run_batched_session(grays, depths, cam, cfg, poses, dev):
     }
 
 
+def cli_dataset(root: Path):
+    """Write the CLI phase's TUM directory into ``root`` with the port's
+    ``make_dataset`` and a camera YAML beside it (the TUM fr1 pinhole, 5000
+    DN per metre): -> (directory, camera YAML)."""
+    from dense_visual_odometry_torch.apps import make_dataset
+
+    make_dataset.main(["-o", str(root / "seq"), "--frames", str(CLI_FRAMES),
+                       "--motion", "handheld-fr1", "--source", "synthetic",
+                       "--seed", str(SEED)])
+    cam = root / "camera.yaml"
+    cam.write_text(f"intrinsics: {synthetic.TUM_FR1_INTRINSICS.astype(float).tolist()}\n"
+                   f"depth_scale: {1.0 / make_dataset.TUM_DN_PER_M}\n")
+    return root / "seq", cam
+
+
+def config_file(name: str, root: Path) -> Path:
+    """A configuration's JSON file: the shipped one, or a variant's base with
+    its overrides written into ``root``."""
+    if name not in VARIANTS:
+        return CONFIGS / f"{name}.json"
+    base, overrides = VARIANTS[name]
+    path = root / f"{name}.json"
+    path.write_text(json.dumps({**json.loads((CONFIGS / f"{base}.json").read_text()),
+                                **overrides}))
+    return path
+
+
+def run_cli() -> dict:
+    """The CLI phase: ``make_dataset`` writes a TUM directory,
+    ``apps.benchmark`` tracks it on the card under each of ``CLI_CONFIGS``
+    and writes its report and trajectory, ``apps.evaluate`` re-reads the
+    trajectory; the launch counts zeroed just before the tracking and read
+    just after.  Raises unless every run reports on the card, its ATE and
+    RPE lie within ``CLI_BOUNDS``, ``evaluate`` agrees with the report's ATE,
+    and each kernel launched (each at a grid stride >= 3 too)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from dense_visual_odometry_torch.apps import benchmark, evaluate
+    from dense_visual_odometry_torch.io.datasets import frame_route, load_tum_sequence
+
+    out = {"phase": "cli", "frames": CLI_FRAMES, "image": [HEIGHT, WIDTH]}
+    with tempfile.TemporaryDirectory(prefix="dvo_cli_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        seq_dir, cam = cli_dataset(root)
+        out["make_dataset_s"] = time.perf_counter() - t0
+        out["decode_route"] = frame_route()
+        n_read = len(load_tum_sequence(seq_dir, camera_yaml=cam))
+        zero_launches()
+        for name in CLI_CONFIGS:
+            run_dir = root / f"out_{name}"
+            summary = benchmark.run(benchmark.parse_args(
+                ["tum", "-d", str(seq_dir), "--camera", str(cam),
+                 "-c", str(config_file(name, root)), "-o", str(run_dir)]))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = evaluate.main([str(run_dir / "trajectory.txt"),
+                                    str(seq_dir / "groundtruth.txt")])
+            scored = json.loads(buf.getvalue().strip().splitlines()[-1])
+            out[name] = {
+                **summary, "evaluate_rc": rc, "evaluate_ate_rmse_m": scored.get("ate_rmse_m"),
+                "written": sorted(p.name for p in run_dir.iterdir()),
+                "frames_per_total_s": summary["frames"] / summary["total_time_s"],
+                "read_share": summary["read_s"] / summary["total_time_s"],
+            }
+        out["launches"], out["runtime_stride_launches"] = read_launches()
+    emit(out)
+    fast = out["tpu_fast"]
+    print(f"cli decode route: {out['decode_route']}", flush=True)
+    print(f"cli frames/s: {fast['fps']} (tpu_fast, {HEIGHT}x{WIDTH}, the tracking step after "
+          f"the first frame); {fast['frames_per_total_s']} over the whole run, reading "
+          f"{fast['read_share']} of it", flush=True)
+    print(f"cli ms per frame: {fast['mean_frame_ms']} mean, {fast['median_frame_ms']} median, "
+          f"first frame {fast['first_frame_s'] * 1e3} ms", flush=True)
+    backend = f"cuda:{torch.cuda.get_device_name(0)}"
+    for name in CLI_CONFIGS:
+        r, bounds = out[name], CLI_BOUNDS[name]
+        if r["backend"] != backend or r["frames"] != n_read:
+            raise AssertionError(f"cli {name}: ran on {r['backend']} over {r['frames']} frames")
+        if r["written"] != ["report.json", "trajectory.txt"] or r["evaluate_rc"] != 0:
+            raise AssertionError(f"cli {name}: wrote {r['written']}, evaluate {r['evaluate_rc']}")
+        if abs(r["evaluate_ate_rmse_m"] - r["ate_rmse_m"]) > 1e-5:
+            raise AssertionError(f"cli {name}: evaluate's ATE {r['evaluate_ate_rmse_m']} is not "
+                                 f"the report's {r['ate_rmse_m']}")
+        if (r["ate_rmse_m"] * 1e3 > bounds["ate_mm"]
+                or r["rpe_trans_rmse_m"] * 1e3 > bounds["rpe_mm"]
+                or np.degrees(r["rpe_rot_rmse_rad"]) > bounds["rpe_deg"]):
+            raise AssertionError(f"cli {name}: ATE / RPE above the expected bound")
+    if min(out["launches"].values()) < 1 or min(out["runtime_stride_launches"].values()) < 1:
+        raise AssertionError(f"cli: a kernel never launched (at a grid stride >= 3): "
+                             f"{out['launches']}, {out['runtime_stride_launches']}")
+    return out
+
+
+def zero_launches() -> None:
+    """Every launch count of the port's kernels to 0."""
+    lm_level.launches = 0
+    lm_level.block_launches = 0
+    lm_level.tile_launches = 0
+    for fn in (lm_level, fused_iter.fused_evaluation, stack_accumulate):
+        fn.launches = 0
+        fn.runtime_stride_launches = 0
+
+
+def read_launches():
+    """-> ({kernel: launches}, {kernel: launches at a grid stride >= 3})."""
+    fns = {"level_solver": lm_level, "fused_iter": fused_iter.fused_evaluation,
+           "stackwarp": stack_accumulate}
+    return ({n: fn.launches for n, fn in fns.items()},
+            {n: fn.runtime_stride_launches for n, fn in fns.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
@@ -942,6 +1218,19 @@ def kernel_checks(frames, poses, cam, dev) -> list:
                 checks.append(
                     check_fused_kernel(prev, curr, gt, cam, dev, illum, level, cfg_name))
                 emit(checks[-1])
+        # The runtime-stride variants (strides 3 and 4) at level 0.
+        for s in STRIDES:
+            for cfg_name, illum, term in STRIDE_LEVEL_CASES[s]:
+                rel = config(cfg_name).relative_tolerance
+                checks.append(check_level_kernel(prev, curr, gt, cam, dev, 0, illum, rel,
+                                                 term, cfg_name=cfg_name))
+                emit(checks[-1])
+            for illum in (None, "bias"):
+                checks.append(check_fused_kernel(prev, curr, gt, cam, dev, illum, 0,
+                                                 f"fast_stride{s}"))
+                emit(checks[-1])
+            checks.append(check_stack_kernel(prev, curr, gt, cam, dev, 0, f"fast_stride{s}"))
+            emit(checks[-1])
         if batch in SWEEP_BATCHES:
             for level in (0, LEVELS - 1):
                 checks.append(check_level_geometries(prev, curr, gt, cam, dev, level))
@@ -986,11 +1275,7 @@ def run(dev: torch.device, smi: str) -> list:
         raise AssertionError(f"a configuration has no kernel-path pairs: {kernel_path}")
 
     # Phase 4: the main path, with the launch counts zeroed just before it.
-    lm_level.launches = 0
-    lm_level.block_launches = 0
-    lm_level.tile_launches = 0
-    fused_iter.fused_evaluation.launches = 0
-    stack_accumulate.launches = 0
+    zero_launches()
     main = {"phase": "main_path", "image": [HEIGHT, WIDTH], "pairs": len(pairs),
             "kernel_path_pairs": kernel_path}
     batched, transforms = [], {}
@@ -1023,19 +1308,22 @@ def run(dev: torch.device, smi: str) -> list:
         variant_launches[name] += lm_level.launches - before
     main["batched_session_tpu_accurate"] = run_batched_session(
         grays, depths, cam, configs["tpu_accurate"], poses, dev)
-    launches = {"level_solver": lm_level.launches,
-                "fused_iter": fused_iter.fused_evaluation.launches,
-                "stackwarp": stack_accumulate.launches}
+    launches, stride_launches = read_launches()
     main["launches"] = launches
     # Of the level kernel's launches, those on row blocks and on tiles.
     block_launches = {"blocks": lm_level.block_launches, "tiles": lm_level.tile_launches}
     main["level_solver_launches"] = block_launches
+    # Of each kernel's launches, those of its runtime-stride variant.
+    main["runtime_stride_launches"] = stride_launches
     emit(main)
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
     if min(block_launches.values()) < 1:
         raise AssertionError(f"the level kernel never launched on blocks or tiles: "
                              f"{block_launches}")
+    if min(stride_launches.values()) < 1:
+        raise AssertionError(f"a kernel never launched at a grid stride >= 3: "
+                             f"{stride_launches}")
     # The level kernel's depth and prior variants ran on the main path.
     if min(variant_launches["fast_depth"], variant_launches["fast_prior"]) < 1:
         raise AssertionError(f"a variant of the level kernel never launched: {variant_launches}")
@@ -1096,6 +1384,8 @@ def run(dev: torch.device, smi: str) -> list:
         if name not in GN_CONFIGS and not cross[name]["same_iterations"]:
             raise AssertionError(f"{name}: GPU and CPU iteration counts differ")
 
+    cli = run_cli()
+
     # Per-kernel summary (level-0 cases; times from phase 3).
     def summary(name, source, replaces, check, fields):
         errs = [c["errors"][f] for c in checks if c["kernel"] == name for f in fields]
@@ -1119,9 +1409,10 @@ def run(dev: torch.device, smi: str) -> list:
     level0 = level_check(None, 0.01)
     single = [c for c in checks if c["kernel"] == "level_solver" and c["config"] == "tpu_fast"]
     fused0 = next(c for c in checks if c["kernel"] == "fused_iter" and c["level"] == 0
-                  and c["illumination"] is None and c["batch"] == SUMMARY_BATCH)
+                  and c["illumination"] is None and c["batch"] == SUMMARY_BATCH
+                  and c["config"] == "tpu_fast")
     stack0 = next(c for c in checks if c["kernel"] == "stackwarp" and c["level"] == 0
-                  and c["batch"] == SUMMARY_BATCH)
+                  and c["batch"] == SUMMARY_BATCH and c["config"] == "tpu_parity")
     # The level kernel's depth and prior variants: level 0 at B=8, their
     # errors over every case of the term, their launches on the main path
     # (fast_depth's and fast_prior's runs).
@@ -1144,7 +1435,8 @@ def run(dev: torch.device, smi: str) -> list:
                                    ("tiles", "parity_tiles_r2", None)):
         check = level_check(None, rel, config_name)
         errs = [c["errors"][f] for c in checks if c["kernel"] == "level_solver"
-                and (c["blocks"]["cols"] > 1) == (kind == "tiles") and c["config"] != "tpu_fast"
+                and (c["blocks"]["cols"] > 1) == (kind == "tiles")
+                and c["config"] in {name for name, _, _ in BLOCK_CASES}
                 for f in ("est", "anchor")]
         variants[kind] = {
             "launches": block_launches[kind],
@@ -1153,17 +1445,42 @@ def run(dev: torch.device, smi: str) -> list:
             "ms": check["ms"], "plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
             "bound_by": check["bound_by"], "library_ms": None, "shape": check["shape"],
         }
+    # The runtime-stride variant of each kernel: its level-0 case at B=8 at
+    # each stride (the level kernel's without illumination or term), its
+    # errors over every case at that stride, its launches on the main path.
+    def strides(name, fields):
+        out = {"runtime_stride_launches": stride_launches[name]}
+        for st in STRIDES:
+            cases = [c for c in checks if c["kernel"] == name and c["grid_stride"] == st]
+            check = next(c for c in cases if c["batch"] == SUMMARY_BATCH
+                         and c.get("illumination") is None and c.get("term") is None
+                         and c["config"] == f"fast_stride{st}")
+            errs = [c["errors"][f] for c in cases for f in fields]
+            out[str(st)] = {
+                "max_abs_err": max(e["max_abs"] for e in errs),
+                "max_rel_err": max(e["max_rel"] for e in errs),
+                "ms": check["ms"], "plain_ms": check["plain_ms"],
+                "bound_ms": check["bound_ms"], "bound_by": check["bound_by"],
+                "library_ms": check.get("library_ms"), "shape": check["shape"],
+            }
+        return out
+
     kernels = [
         {**summary("level_solver", "dense_visual_odometry_torch/ops/cuda/csrc/level_solver.cu",
                    "dense_visual_odometry_tpu/ops/pallas/level_solver.py:268", level0,
-                   ("est", "anchor")), "variants": variants},
-        summary("fused_iter", "dense_visual_odometry_torch/ops/cuda/csrc/fused_iter.cu",
-                "dense_visual_odometry_tpu/ops/pallas/fused_iter.py:56", fused0,
-                ("H", "rhs", "err", "lam")),
-        summary("stackwarp", "dense_visual_odometry_torch/ops/cuda/csrc/stackwarp.cu",
-                "dense_visual_odometry_tpu/ops/pallas/stackwarp.py:38", stack0,
-                ("samples",)),
+                   ("est", "anchor")), "variants": variants,
+         "strides": strides("level_solver", ("est", "anchor"))},
+        {**summary("fused_iter", "dense_visual_odometry_torch/ops/cuda/csrc/fused_iter.cu",
+                   "dense_visual_odometry_tpu/ops/pallas/fused_iter.py:56", fused0,
+                   ("H", "rhs", "err", "lam")),
+         "strides": strides("fused_iter", ("H", "rhs", "err", "lam"))},
+        {**summary("stackwarp", "dense_visual_odometry_torch/ops/cuda/csrc/stackwarp.cu",
+                   "dense_visual_odometry_tpu/ops/pallas/stackwarp.py:38", stack0,
+                   ("samples",)),
+         "strides": strides("stackwarp", ("samples",))},
     ]
+    for row in kernels:
+        row["cli_launches"] = cli["launches"][row["name"]]
     return kernels
 
 

@@ -1,7 +1,10 @@
 """Synthetic RGB-D scenes and sequences with exact ground truth (numpy only).
 
-``render_view``, ``handheld_trajectory`` and ``render_sequence`` are copies
-of ``dense_visual_odometry_tpu/io/synthetic.py`` (same seeds, same frames);
+``render_view``, ``orbit_trajectory``, ``handheld_trajectory``,
+``degrade_gray``, ``degrade_depth`` and ``render_sequence`` are copies of
+``dense_visual_odometry_tpu/io/synthetic.py`` (same seeds, same random
+streams, same frames; the depth degradation's 3x3 dilation and erosion in
+numpy rather than OpenCV);
 ``textured_scene`` makes the source frame itself from a seed: a smooth
 multi-scale texture over bumpy depth, seen by the TUM fr1 pinhole.
 """
@@ -164,6 +167,41 @@ def render_view(
     return out_gray, out_depth
 
 
+def orbit_trajectory(
+    n: int, radius: float = 0.05, angle: float = 0.05, advance: float = 0.02
+) -> np.ndarray:
+    """(N, 4, 4) camera-to-world poses: a forward-advancing orbit wiggle
+    exercising all six DoF."""
+    poses = []
+    for t in range(n):
+        phase = 2 * np.pi * t / max(n - 1, 1)
+        # Rotation: small roll+pitch+yaw wobble.
+        rx, ry, rz = (
+            angle * np.sin(phase),
+            angle * np.cos(phase),
+            0.5 * angle * np.sin(2 * phase),
+        )
+        def rot(axis, a):
+            c, s = np.cos(a), np.sin(a)
+            m = np.eye(3)
+            i, j = [(1, 2), (0, 2), (0, 1)][axis]
+            m[i, i] = c
+            m[j, j] = c
+            m[i, j] = -s if axis != 1 else s
+            m[j, i] = s if axis != 1 else -s
+            return m
+        r = rot(0, rx) @ rot(1, ry) @ rot(2, rz)
+        p = np.eye(4)
+        p[:3, :3] = r
+        p[:3, 3] = [
+            radius * np.sin(phase),
+            radius * (1 - np.cos(phase)),
+            advance * t,
+        ]
+        poses.append(p)
+    return np.stack(poses)
+
+
 def handheld_trajectory(
     n: int,
     seed: int = 0,
@@ -240,6 +278,77 @@ def handheld_trajectory(
             )
         poses.append(p)
     return np.stack(poses)
+
+
+def _window3x3(image: np.ndarray, op, fill: float) -> np.ndarray:
+    """``op`` (np.maximum or np.minimum) over each pixel's 3x3 neighbourhood,
+    pixels outside the image left out: cv2.dilate / cv2.erode with a 3x3
+    kernel and their default border."""
+    h, w = image.shape
+    padded = np.full((h + 2, w + 2), fill, image.dtype)
+    padded[1:-1, 1:-1] = image
+    out = padded[0:h, 0:w]
+    for dy in range(3):
+        for dx in range(3):
+            if dy or dx:
+                out = op(out, padded[dy:dy + h, dx:dx + w])
+    return out
+
+
+def degrade_gray(
+    gray: np.ndarray, frame_idx: int, rng: np.random.Generator,
+    exposure_state: dict,
+) -> np.ndarray:
+    """Kinect-RGB-style photometric degradation: slowly-wandering
+    auto-exposure (gain +-5%, bias +-4 DN — violating the solver's
+    brightness-constancy assumption like TUM's auto-exposure does) plus
+    per-pixel Gaussian sensor noise (sigma 2 DN)."""
+    g = exposure_state.setdefault("gain", 1.0)
+    b = exposure_state.setdefault("bias", 0.0)
+    # AR(1) wander, clamped.
+    g = float(np.clip(0.98 * g + 0.02 + 0.004 * rng.standard_normal(), 0.95, 1.05))
+    b = float(np.clip(0.95 * b + 0.5 * rng.standard_normal(), -4.0, 4.0))
+    exposure_state["gain"], exposure_state["bias"] = g, b
+    noisy = g * gray + b + 2.0 * rng.standard_normal(gray.shape)
+    return np.clip(noisy, 0.0, 255.0).astype(np.float32)
+
+
+def degrade_depth(
+    depth_m: np.ndarray, rng: np.random.Generator,
+    fb: float = 43.5, disp_step: float = 0.125,
+) -> np.ndarray:
+    """Kinect-style depth degradation.
+
+    1. Disparity quantization: the sensor measures disparity d = fb/z in
+       1/8-px steps (f~580 px, baseline 7.5 cm => fb ~ 43.5 m*px), so
+       depth resolution degrades quadratically: ~2.9 mm at 1 m, ~11.5 mm
+       at 2 m — the dominant error on TUM depth.
+    2. Edge dropout: pixels whose 3x3 depth neighbourhood spans a large
+       relative jump lose their return with high probability (structured
+       light fails on oblique/discontinuous surfaces).
+    3. Random speckle dropout (~0.3%).
+    """
+    z = depth_m.copy()
+    valid = z > 0
+    disp = np.zeros_like(z)
+    disp[valid] = fb / z[valid]
+    disp_q = np.round(disp / disp_step) * disp_step
+    z_q = np.zeros_like(z)
+    ok = disp_q > 0
+    z_q[valid & ok] = fb / disp_q[valid & ok]
+
+    # Edge dropout: relative depth range over a 3x3 window.
+    zmax = _window3x3(z, np.maximum, -np.inf)
+    zmin_raw = z.copy()
+    zmin_raw[~valid] = np.inf
+    zmin = _window3x3(zmin_raw, np.minimum, np.inf)
+    rel_jump = np.zeros_like(z)
+    edge = valid & np.isfinite(zmin) & (zmin > 0)
+    rel_jump[edge] = (zmax[edge] - zmin[edge]) / zmin[edge]
+    drop_edge = edge & (rel_jump > 0.05) & (rng.random(z.shape) < 0.5)
+    speckle = valid & (rng.random(z.shape) < 0.003)
+    z_q[drop_edge | speckle] = 0.0
+    return z_q
 
 
 def render_sequence(

@@ -50,9 +50,9 @@ every level.  Data-dependent control flow (the trigger, loop exits, the
 retrack) reads device values on the host, as ``lax.cond`` /
 ``lax.while_loop`` did inside the JAX program.
 
-Still refused, with ``NotImplementedError`` naming ROADMAP.md's port queue
-item 1: grid strides other than 1 and 2 at the levels that reach a kernel.
-ESM gradients on the fused path without
+Every grid stride runs, at every level: the kernels have a variant for
+strides 1 and 2 each and one for every stride >= 3.  ESM gradients on the
+fused path without
 ``freeze_shift_window`` never get here: the configuration refuses them, as
 the JAX package's does.
 """
@@ -206,20 +206,6 @@ def frame_data_from_numpy(frame, device) -> FrameData:
         gray=tuple(conv(g) for g in frame.gray),
         depth_m=tuple(conv(d) for d in frame.depth_m),
     )
-
-
-def _check_ported(cfg: RobustDVOConfig) -> None:
-    """Raise for configurations whose branches this port does not have yet:
-    grid strides other than 1 and 2 where a kernel samples the level, which
-    wait in ROADMAP.md's port queue item 1 ("packed" and "plain" levels
-    take any)."""
-    for level in range(cfg.levels):
-        plan = level_plan(cfg, level)
-        if plan.shift_stack and plan.stride not in (1, 2):
-            raise NotImplementedError(
-                f"grid stride {plan.stride} at a kernel level is not ported yet "
-                f"(ROADMAP.md, port queue item 1)"
-            )
 
 
 def _bias_schur(sys, residuals, jacobian, weights):
@@ -1008,7 +994,6 @@ def track_pair(
     """Align each ``curr`` against its ``prev``: pyramids (B, H, W) per
     level on one device; init_guess / last_transform (4, 4) or (B, 4, 4).
     Runs on the device of the pyramids."""
-    _check_ported(cfg)
     dev = prev.gray[0].device
     b = prev.gray[0].shape[0]
     eye = torch.eye(4, dtype=torch.float32, device=dev).expand(b, 4, 4)

@@ -3,6 +3,10 @@
 // level kernel (level_solver.cu, one evaluation per LM iteration) and the
 // fused kernel (fused_iter.cu, one photometric evaluation per launch).
 //
+// Grid strides.  S = 1 and 2 are template values; every stride >= 3 runs
+// the dvo::kRuntimeStride instantiation, which reads E.s and divides where
+// the others mask and shift (tent_sample, dvo_common.cuh).
+//
 // Geometry.  Element b runs on cluster b of C CTAs (C in {1, 2, 4, 8, 16},
 // chosen by level_solver.py's level_geometry from the batch, the level's
 // size and the planes a kernel keeps in shared memory); CTA rank k owns the
@@ -83,6 +87,9 @@ struct EvalInputs {
   // blocks: nby x nbx blocks of t_y x t_x grid pixels, nblk = nby * nbx.
   int radius_y = 0;
   int nbx = 1, t_y = 0, t_x = 0, nblk = 1;
+  // The grid stride, read by the kRuntimeStride variants (strides >= 3);
+  // the others take it from their template argument.
+  int s = 1;
 };
 // scal: [0:16) pose (row-major 4x4) | [16:32) anchor | 32 t-scale lambda
 //       | 33 fx | 34 fy | 35 cx | 36 cy | 37 cu | 38 cv | 39 relative
@@ -102,23 +109,24 @@ struct Band {
   float fx, fy, cx, cy, cu, cv;               // cu, cv: the one centre (nblk 1)
 };
 
-// The band of CTA `rank` of `nrank` of element b at grid stride S, its
-// inputs in device memory.
+// The band of CTA `rank` of `nrank` of element b at grid stride S (or
+// E.s, kRuntimeStride), its inputs in device memory.
 template <int S>
 __device__ __forceinline__ Band band_of(const EvalInputs& E, int b, int rank, int nrank) {
+  const int s = grid_stride<S>(E.s);
   const int npx = E.hp * E.wp;
   const int row0 = rank * E.hp / nrank;
   Band B;
   B.off = row0 * E.wp;
   B.n = ((rank + 1) * E.hp / nrank - row0) * E.wp;
-  B.planes = E.planes + (size_t)b * E.nblk * S * S * E.ph * E.pw;
+  B.planes = E.planes + (size_t)b * E.nblk * s * s * E.ph * E.pw;
   B.ptx = E.points + (size_t)b * 3 * npx + B.off;
   B.pty = B.ptx + npx;
   B.ptz = B.ptx + 2 * npx;
   B.gray = E.gray + (size_t)b * npx + B.off;
   B.jac = E.jac + (size_t)b * 6 * npx + B.off;
   B.jst = npx;
-  B.zplanes = E.zplanes ? E.zplanes + (size_t)b * E.nblk * S * S * E.ph * E.pw : nullptr;
+  B.zplanes = E.zplanes ? E.zplanes + (size_t)b * E.nblk * s * s * E.ph * E.pw : nullptr;
   B.zgx = E.zgrad ? E.zgrad + (size_t)b * 2 * npx + B.off : nullptr;
   B.zst = npx;
   const float* scal = E.scal + (size_t)b * E.in_cols;
@@ -158,7 +166,8 @@ __device__ __forceinline__ Window window_at(const EvalInputs& E, const Band& B, 
     const int k = i / E.t_y, l = j / E.t_x;
     const int t = k * E.nbx + l;
     const float* cen = block_centres<kShared>(E);
-    return Window{t * S * S * E.ph * E.pw, i - k * E.t_y, j - l * E.t_x, cen[t],
+    const int s = grid_stride<S>(E.s);
+    return Window{t * s * s * E.ph * E.pw, i - k * E.t_y, j - l * E.t_x, cen[t],
                   cen[E.nblk + t]};
   }
 }
@@ -290,7 +299,7 @@ __device__ __forceinline__ void warp_pass(const EvalInputs& E, const Band& B,
   const int n = B.n;
   const int radius_y = kBlocks ? E.radius_y : E.radius;
   const float rad = (float)E.radius, rad_y = (float)radius_y;
-  const float stride = (float)S;
+  const float stride = (float)grid_stride<S>(E.s);
   const float wmax = (float)(E.image_w - 1), hmax = (float)(E.image_h - 1);
   // Template row and column of the thread's next pixel, stepped by
   // kThreads pixels at a time rather than divided out per pixel.
@@ -337,7 +346,8 @@ __device__ __forceinline__ void warp_pass(const EvalInputs& E, const Band& B,
           x0 >= 0.0f && y0 >= 0.0f && x0 + 1.0f <= wmax && y0 + 1.0f <= hmax;
       float r = nanf("");
       if (in_ball && in_bounds && in_front) {
-        r = tent_sample<S>(B.planes + w.off, E.ph, E.pw, E.radius, radius_y, w.i, w.j, du, dv) -
+        r = tent_sample<S>(B.planes + w.off, E.ph, E.pw, E.radius, radius_y, w.i, w.j, du, dv,
+                           E.s) -
             G[k];
         part[0] += 1.0;
         part[1] += (double)r;
@@ -360,7 +370,7 @@ __device__ __forceinline__ void depth_pass(const EvalInputs& E, const Band& B,
                                            double (&zpart)[kDepthSums]) {
   const int n = B.n;
   const int radius_y = kBlocks ? E.radius_y : E.radius;
-  const float stride = (float)S;
+  const float stride = (float)grid_stride<S>(E.s);
   for (int p = threadIdx.x; p < n; p += kThreads) {
     if (isnan(res[p])) continue;
     const int q = B.off + p;
@@ -377,7 +387,7 @@ __device__ __forceinline__ void depth_pass(const EvalInputs& E, const Band& B,
     const float du = u - ((float)j * stride + w.cu);
     const float dv = v - ((float)i * stride + w.cv);
     const float z_meas = tent_sample<S>(B.zplanes + w.off, E.ph, E.pw, E.radius, radius_y,
-                                        w.i, w.j, du, dv);
+                                        w.i, w.j, du, dv, E.s);
     if (!(z_meas > 0.0f)) continue;
     accumulate_depth<double>(zpart, z_meas, xp, yp, zp, __ldg(B.zgx + p) * B.fx,
                              __ldg(B.zgx + B.zst + p) * B.fy, E.depth_delta);

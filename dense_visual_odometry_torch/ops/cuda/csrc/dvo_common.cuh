@@ -40,28 +40,47 @@ constexpr int kIllumNone = 0;
 constexpr int kIllumBias = 1;
 constexpr int kIllumAffine = 2;
 
+// Grid strides.  Strides 1 and 2 are compile-time template values (their
+// parity plane and plane column are a mask and a shift); every stride >= 3
+// shares one instantiation, kRuntimeStride, that reads the stride at run
+// time and divides.
+constexpr int kRuntimeStride = 0;
+
+// The grid stride of a variant: S, or the runtime value s for kRuntimeStride.
+template <int S>
+__device__ __forceinline__ int grid_stride(int s) {
+  static_assert(S == 1 || S == 2 || S == kRuntimeStride, "grid stride 1, 2 or runtime");
+  if constexpr (S == kRuntimeStride) return s;
+  else return S;
+}
+
 // Tent-tap sample of a frozen window at its grid pixel (i, j) (the pixel's
 // place in its block's window), displacement (du, dv) from the window
-// centre, at grid stride S (1 or 2), with tap radii rx across and ry down.
+// centre, at grid stride S (1 or 2, or kRuntimeStride with the stride in
+// s_rt), with tap radii rx across and ry down.
 // The TPU kernels sweep all (2 ry + 1)(2 rx + 1) taps; a tent weight
 // max(0, 1 - |d - k|) is
 // non-zero for at most two k per axis (floor(d) and floor(d) + 1), so only
 // those <= 4 taps are read, straight from the parity planes through the
 // read-only path, and summed in the sweep's order: rows ascending, and
-// within a row by column parity plane first (stride 2), then by column.
+// within a row by column parity plane first, then by column.  Of a row's
+// two taps, at window columns b0 = rx + floor(du) and b0 + 1, the second
+// comes first exactly when s >= 2 and b0 % s == s - 1 (its plane is 0, the
+// first's is s - 1).
 // Taps outside [-ry, ry] x [-rx, rx] carry no weight in the sweep and are
 // skipped; a NaN displacement gives NaN as it does there.  A tap's window
-// offset a = ry + ky (b = rx + kx) is >= 0, so with S known at compile time
-// its parity plane and plane column are a mask and a shift.  All four taps
+// offset a = ry + ky (b = rx + kx) is >= 0: its parity plane is a % s and
+// its plane row a / s, a mask and a shift when S is 1 or 2.  All four taps
 // are loaded, from offsets clamped into the window, before any is used (a
 // tap outside the ball's range is loaded but not added), so a thread's
 // loads are in flight together.
 template <int S>
 __device__ __forceinline__ float tent_sample(
     const float* __restrict__ planes, int ph, int pw, int rx, int ry,
-    int i, int j, float du, float dv) {
-  static_assert(S == 1 || S == 2, "grid stride 1 or 2");
+    int i, int j, float du, float dv, int s_rt = S) {
+  static_assert(S == 1 || S == 2 || S == kRuntimeStride, "grid stride 1, 2 or runtime");
   constexpr int kShift = S == 2 ? 1 : 0;
+  [[maybe_unused]] const int s = grid_stride<S>(s_rt);
   const float fy = floorf(dv);
   const float fx = floorf(du);
   const float rxf = (float)rx, ryf = (float)ry;
@@ -70,7 +89,7 @@ __device__ __forceinline__ float tent_sample(
   // the tap lies in the window, and its window offset clamped into it.
   float wy[2], wx[2];
   bool hy[2], hx[2];
-  int row[2], col[2];
+  int row[2], col[2], pb0 = 0;
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
     const float kyf = fy + (float)t;
@@ -81,16 +100,27 @@ __device__ __forceinline__ float tent_sample(
     wx[t] = fmaxf(0.0f, 1.0f - fabsf(du - kxf));
     const int a = ry + min(max((int)kyf, -ry), ry);
     const int b = rx + min(max((int)kxf, -rx), rx);
-    row[t] = (a & (S - 1)) * S * plane + ((a >> kShift) + i) * pw;
-    col[t] = (b & (S - 1)) * plane + (b >> kShift) + j;
+    if constexpr (S == kRuntimeStride) {
+      const int qa = a / s, qb = b / s;
+      const int pa = a - qa * s, pb = b - qb * s;
+      row[t] = pa * s * plane + (qa + i) * pw;
+      col[t] = pb * plane + qb + j;
+      if (t == 0) pb0 = pb;
+    } else {
+      row[t] = (a & (S - 1)) * S * plane + ((a >> kShift) + i) * pw;
+      col[t] = (b & (S - 1)) * plane + (b >> kShift) + j;
+    }
   }
   float val[2][2];
 #pragma unroll
   for (int ty = 0; ty < 2; ++ty)
 #pragma unroll
     for (int tx = 0; tx < 2; ++tx) val[ty][tx] = __ldg(planes + row[ty] + col[tx]);
-  // At stride 2 the sweep visits the even-parity plane before the odd one.
-  const bool swap = (S == 2) && hx[0] && ((rx + (int)fx) & 1);
+  // The sweep visits column parity plane 0 before plane s - 1.  With hx[0]
+  // the first tap's clamped offset is b0 itself.
+  bool swap;
+  if constexpr (S == kRuntimeStride) swap = s >= 2 && hx[0] && pb0 == s - 1;
+  else swap = (S == 2) && hx[0] && ((rx + (int)fx) & 1);
   float acc = 0.0f;
 #pragma unroll
   for (int ty = 0; ty < 2; ++ty) {

@@ -3,8 +3,9 @@
 //
 // Replaces: dense_visual_odometry_tpu/ops/pallas/fused_iter.py:56
 // _fused_kernel, with the warp, masks and bias Schur of its wrapper
-// fused_shift_iteration (:239): illumination none or "bias", grid strides
-// 1 and 2.
+// fused_shift_iteration (:239): illumination none or "bias", every grid
+// stride (1 and 2 at compile time, every stride >= 3 in one variant that
+// reads it at run time, dvo::kRuntimeStride).
 //
 // It takes the level kernel's inputs (the frozen window, the NaN-poisoned
 // template points, the template, the Jacobian planes and the scalar row,
@@ -84,15 +85,21 @@ __global__ void __launch_bounds__(dvo::kThreads, 1) fused_kernel(FusedParams P) 
 
 using KernelFn = void (*)(FusedParams);
 
+// Every stride has its variant; null for s < 1.
 template <int kIllum>
 KernelFn pick_stride(int s) {
-  return s == 2 ? fused_kernel<kIllum, 2> : fused_kernel<kIllum, 1>;
+  if (s == 1) return fused_kernel<kIllum, 1>;
+  if (s == 2) return fused_kernel<kIllum, 2>;
+  if (s >= 3) return fused_kernel<kIllum, dvo::kRuntimeStride>;
+  return nullptr;
 }
 
-// illum: 0 none, 1 bias (dvo::kIllum*; no affine variant); s: 1 or 2.
+// illum: 0 none, 1 bias (dvo::kIllum*; no affine variant); s >= 1.  Null
+// for any other combination.
 KernelFn pick(int illum, int s) {
   if (illum == dvo::kIllumBias) return pick_stride<dvo::kIllumBias>(s);
-  return pick_stride<dvo::kIllumNone>(s);
+  if (illum == dvo::kIllumNone) return pick_stride<dvo::kIllumNone>(s);
+  return nullptr;
 }
 
 }  // namespace
@@ -102,9 +109,9 @@ KernelFn pick(int illum, int s) {
 // this kernel keeps no inputs resident and has no depth term.
 extern "C" int dvo_max_active_clusters(int illum, int s, int resident, int depth, int cluster,
                                        int dynamic_bytes, int* out) {
-  if (illum == dvo::kIllumAffine || resident || depth)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dvo::max_active_clusters(pick(illum, s), cluster, dynamic_bytes, out));
+  const KernelFn kern = pick(illum, s);
+  if (kern == nullptr || resident || depth) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dvo::max_active_clusters(kern, cluster, dynamic_bytes, out));
 }
 
 extern "C" int dvo_fused_evaluation(
@@ -114,13 +121,14 @@ extern "C" int dvo_fused_evaluation(
     int radius, int image_h, int image_w, float dof, int unroll,
     int use_tweights, int normalize_scale, int illum, int cluster, int band_stride,
     int dynamic_bytes, void* stream) {
-  if (illum == dvo::kIllumAffine) return static_cast<int>(cudaErrorInvalidValue);
+  const KernelFn kern = pick(illum, s);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   // One window centre: the isotropic ball, one block of hp x wp pixels.
   const FusedParams P{
       {planes, points, gray, jac, scal, ph, pw, hp, wp, in_cols, radius, image_h, image_w,
        unroll, use_tweights, normalize_scale, band_stride, dof, nullptr, nullptr, 0.0f,
-       radius, 1, hp, wp, 1},
+       radius, 1, hp, wp, 1, s},
       out};
-  return static_cast<int>(dvo::launch(pick(illum, s), P, batch, cluster,
-                                      dynamic_bytes, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dvo::launch(kern, P, batch, cluster, dynamic_bytes,
+                                      static_cast<cudaStream_t>(stream)));
 }

@@ -4,8 +4,9 @@
 // Replaces: dense_visual_odometry_tpu/ops/pallas/level_solver.py:268
 // _level_kernel (one frozen-window centre, or one per row block or 2-D
 // tile with an anisotropic ball; illumination none, "bias" or "affine";
-// with or without the depth term and the motion prior; grid strides 1
-// and 2).
+// with or without the depth term and the motion prior; every grid stride:
+// 1 and 2 as template values, every stride >= 3 in one variant that reads
+// it at run time, dvo::kRuntimeStride).
 //
 // Row blocks and tiles are runtime parameters (nby, nbx, t_y, t_x,
 // radius_y), not template variants: the warp pass and the depth pass take
@@ -406,21 +407,25 @@ KernelFn pick_residency(int resident) {
   return resident ? level_kernel<kIllum, S, true, kDepth> : level_kernel<kIllum, S, false, kDepth>;
 }
 
+// Every stride has its variant; null for s < 1.
 template <int kIllum, bool kDepth>
 KernelFn pick_stride(int s, int resident) {
-  return s == 2 ? pick_residency<kIllum, 2, kDepth>(resident)
-                : pick_residency<kIllum, 1, kDepth>(resident);
+  if (s == 1) return pick_residency<kIllum, 1, kDepth>(resident);
+  if (s == 2) return pick_residency<kIllum, 2, kDepth>(resident);
+  if (s >= 3) return pick_residency<kIllum, dvo::kRuntimeStride, kDepth>(resident);
+  return nullptr;
 }
 
 template <bool kDepth>
 KernelFn pick_illum(int illum, int s, int resident) {
   if (illum == dvo::kIllumAffine) return pick_stride<dvo::kIllumAffine, kDepth>(s, resident);
   if (illum == dvo::kIllumBias) return pick_stride<dvo::kIllumBias, kDepth>(s, resident);
-  return pick_stride<dvo::kIllumNone, kDepth>(s, resident);
+  if (illum == dvo::kIllumNone) return pick_stride<dvo::kIllumNone, kDepth>(s, resident);
+  return nullptr;
 }
 
-// illum: 0 none, 1 bias, 2 affine (dvo::kIllum*); s: 1 or 2; depth: the
-// variant with the depth term.
+// illum: 0 none, 1 bias, 2 affine (dvo::kIllum*); s >= 1; depth: the
+// variant with the depth term.  Null for any other combination.
 KernelFn pick(int illum, int s, int resident, int depth) {
   return depth ? pick_illum<true>(illum, s, resident) : pick_illum<false>(illum, s, resident);
 }
@@ -431,8 +436,9 @@ KernelFn pick(int illum, int s, int resident, int depth) {
 // (cudaOccupancyMaxActiveClusters), in *out.
 extern "C" int dvo_max_active_clusters(int illum, int s, int resident, int depth, int cluster,
                                        int dynamic_bytes, int* out) {
-  return static_cast<int>(
-      dvo::max_active_clusters(pick(illum, s, resident, depth), cluster, dynamic_bytes, out));
+  const KernelFn kern = pick(illum, s, resident, depth);
+  if (kern == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dvo::max_active_clusters(kern, cluster, dynamic_bytes, out));
 }
 
 // zplanes / zgrad: the depth term's inputs, null without it (depth 0).
@@ -449,7 +455,8 @@ extern "C" int dvo_level_solver(
     int prior, float inv_cov, float sigma, int reference_energy,
     int radius_y, int nby, int nbx, int t_y, int t_x,
     int cluster, int resident, int band_stride, int dynamic_bytes, void* stream) {
-  if (depth && (zplanes == nullptr || zgrad == nullptr))
+  const KernelFn kern = pick(illum, s, resident, depth);
+  if (kern == nullptr || (depth && (zplanes == nullptr || zgrad == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nby < 1 || nbx < 1 || t_y < 1 || t_x < 1 || radius_y < 1 || radius_y > radius ||
       in_cols != 40 + (nby * nbx > 1 ? 2 * nby * nbx : 0))
@@ -457,9 +464,9 @@ extern "C" int dvo_level_solver(
   const LevelParams P{
       {planes, points, gray, jac, scal, ph, pw, hp, wp, in_cols, radius, image_h, image_w,
        unroll, use_tweights, normalize_scale, band_stride, dof, depth ? zplanes : nullptr,
-       depth ? zgrad : nullptr, depth_delta, radius_y, nbx, t_y, t_x, nby * nbx},
+       depth ? zgrad : nullptr, depth_delta, radius_y, nbx, t_y, t_x, nby * nbx, s},
       out, max_iterations, tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
       depth_weight, prior, inv_cov, sigma, reference_energy};
-  return static_cast<int>(dvo::launch(pick(illum, s, resident, depth), P, batch, cluster,
-                                      dynamic_bytes, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(dvo::launch(kern, P, batch, cluster, dynamic_bytes,
+                                      static_cast<cudaStream_t>(stream)));
 }

@@ -16,9 +16,12 @@
 // What the design does about it: a 3-D grid (32-column x 8-row blocks x
 // batch) gives each thread its row, column and element with no division,
 // in 32-bit arithmetic; a warp covers 32 consecutive pixels of a row, so
-// the displacement loads and the store coalesce.  The taps are
-// dvo::tent_sample<S> at the stride known at compile time (parity plane
-// and plane column by mask and shift), which loads all four taps of a
+// the displacement loads and the store coalesce; the ragged edge (a grid
+// width or height that is no multiple of 32 or 8, e.g. 214 at stride 3
+// on 640 columns) is masked.  The taps are dvo::tent_sample<S>, at strides
+// 1 and 2 known at compile time (parity plane and plane column by mask
+// and shift), at every stride >= 3 read at run time (kRuntimeStride: a
+// division per tap offset), which loads all four taps of a
 // pixel through the read-only path before it adds any; it is the same
 // function and summation order the level and fused kernels sample the
 // window with, instead of the TPU's sweep of all (2r+1)^2 rolled taps.
@@ -35,20 +38,22 @@ template <int S>
 __global__ void __launch_bounds__(kBlockX * kBlockY) stack_kernel(
     const float* __restrict__ planes, const float* __restrict__ du,
     const float* __restrict__ dv, float* __restrict__ out,
-    int ph, int pw, int hp, int wp, int radius) {
+    int s, int ph, int pw, int hp, int wp, int radius) {
   const int j = blockIdx.x * kBlockX + threadIdx.x;
   const int i = blockIdx.y * kBlockY + threadIdx.y;
   const int b = blockIdx.z;
   if (i >= hp || j >= wp) return;
   const int p = (b * hp + i) * wp + j;
-  out[p] = dvo::tent_sample<S>(planes + b * (S * S * ph * pw), ph, pw, radius, radius, i, j,
-                               __ldg(du + p), __ldg(dv + p));
+  const int ss = dvo::grid_stride<S>(s);
+  out[p] = dvo::tent_sample<S>(planes + b * (ss * ss * ph * pw), ph, pw, radius, radius, i, j,
+                               __ldg(du + p), __ldg(dv + p), s);
 }
 
 }  // namespace
 
 // The wrapper keeps batch * s^2 * ph * pw and batch * hp * wp below 2^31
-// and batch at most 65535.
+// and batch at most 65535.  Every stride s >= 1 has a variant; s < 1 is an
+// error.
 extern "C" int dvo_stack_accumulate(
     const float* planes, const float* du, const float* dv, float* out,
     int batch, int s, int ph, int pw, int hp, int wp, int radius,
@@ -57,9 +62,14 @@ extern "C" int dvo_stack_accumulate(
   const dim3 grid((wp + kBlockX - 1) / kBlockX, (hp + kBlockY - 1) / kBlockY, batch);
   const dim3 block(kBlockX, kBlockY, 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (s == 2)
-    stack_kernel<2><<<grid, block, 0, st>>>(planes, du, dv, out, ph, pw, hp, wp, radius);
+  if (s == 1)
+    stack_kernel<1><<<grid, block, 0, st>>>(planes, du, dv, out, s, ph, pw, hp, wp, radius);
+  else if (s == 2)
+    stack_kernel<2><<<grid, block, 0, st>>>(planes, du, dv, out, s, ph, pw, hp, wp, radius);
+  else if (s >= 3)
+    stack_kernel<dvo::kRuntimeStride><<<grid, block, 0, st>>>(planes, du, dv, out, s, ph, pw, hp,
+                                                             wp, radius);
   else
-    stack_kernel<1><<<grid, block, 0, st>>>(planes, du, dv, out, ph, pw, hp, wp, radius);
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

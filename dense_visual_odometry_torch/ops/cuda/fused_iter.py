@@ -99,6 +99,8 @@ def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
     )
     build.check(status, "fused_iter")
     fused_evaluation.launches += 1
+    if grid_stride >= 3:
+        fused_evaluation.runtime_stride_launches += 1
     return out
 
 
@@ -134,6 +136,7 @@ def fused_evaluation(
 
 
 fused_evaluation.launches = 0
+fused_evaluation.runtime_stride_launches = 0  # of them, at a grid stride >= 3
 
 
 def fused_shift_iteration(

@@ -567,8 +567,8 @@ def check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radiu
     scalar row (default: one window, (B, s^2, ph, pw))."""
     b, _, hp, wp = points.shape
     s = grid_stride
-    if s not in (1, 2):
-        raise ValueError(f"grid_stride must be 1 or 2, got {s}")
+    if s < 1:
+        raise ValueError(f"grid_stride must be >= 1, got {s}")
     if layout is None:
         layout = window_layout(hp, wp, radius, s)
     window = (b,) + ((layout.blocks,) if layout.blocks > 1 else ()) + (
@@ -749,7 +749,8 @@ def _max_active_clusters(device: torch.device, library: str, illum: int, grid_st
                          depth: bool = False) -> int:
     """cudaOccupancyMaxActiveClusters of one variant and shape of the
     kernel of ``csrc/<library>.cu``, asked once per process."""
-    key = (device.index, library, illum, grid_stride, cluster, resident, dynamic_bytes, depth)
+    key = (device.index, library, illum, grid_stride, cluster, resident,
+           dynamic_bytes, depth)
     if key not in _active_clusters:
         fn = build.load(library).dvo_max_active_clusters
         fn.restype = ctypes.c_int
@@ -833,6 +834,8 @@ def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
     )
     build.check(status, "level_solver")
     lm_level.launches += 1
+    if grid_stride >= 3:
+        lm_level.runtime_stride_launches += 1
     if layout.tiles:
         lm_level.tile_launches += 1
     elif layout.blocks > 1:
@@ -907,6 +910,7 @@ def lm_level(
 lm_level.launches = 0
 lm_level.block_launches = 0  # of them, with row blocks
 lm_level.tile_launches = 0  # of them, with tiles
+lm_level.runtime_stride_launches = 0  # of them, at a grid stride >= 3
 
 
 def level_inputs(

@@ -5,7 +5,8 @@ Counterpart of ``dense_visual_odometry_tpu/ops/pallas/stackwarp.py``
 ``shift_stack_sample_pallas`` :735).  :func:`stack_accumulate` takes the
 Pallas call's argument layout: on CUDA tensors it launches
 ``csrc/stackwarp.cu`` (a thread per output pixel on a 3-D grid of
-32 x 8-pixel blocks, no index division); on CPU tensors it runs
+32 x 8-pixel blocks, no index division at strides 1 and 2, one variant
+that divides for every stride >= 3); on CPU tensors it runs
 the plain version, :func:`~dense_visual_odometry_torch.ops.shiftwarp.tent_sample`,
 which the kernel's ``dvo::tent_sample`` follows tap for tap.  Any other
 device raises.
@@ -30,8 +31,8 @@ from dense_visual_odometry_torch.ops.shiftwarp import prepare_shift_stack, tent_
 def _check_inputs(planes, du, dv, radius, grid_stride):
     b, hp, wp = du.shape
     s = grid_stride
-    if s not in (1, 2):
-        raise ValueError(f"grid_stride must be 1 or 2, got {s}")
+    if s < 1:
+        raise ValueError(f"grid_stride must be >= 1, got {s}")
     expect = {
         "planes": (planes, (b, s * s, (2 * radius) // s + hp, (2 * radius) // s + wp)),
         "du": (du, (b, hp, wp)),
@@ -67,6 +68,8 @@ def _launch(planes, du, dv, radius, grid_stride) -> torch.Tensor:
     )
     build.check(status, "stackwarp")
     stack_accumulate.launches += 1
+    if grid_stride >= 3:
+        stack_accumulate.runtime_stride_launches += 1
     return out
 
 
@@ -90,6 +93,7 @@ def stack_accumulate(
 
 
 stack_accumulate.launches = 0
+stack_accumulate.runtime_stride_launches = 0  # of them, at a grid stride >= 3
 
 
 def shift_stack_sample_cuda(

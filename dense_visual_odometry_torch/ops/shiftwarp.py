@@ -238,8 +238,8 @@ def prepare_shift_stack(
     du, dv (B, H', W') centre-relative displacements, valid)."""
     if radius < 1:
         raise ValueError("radius must be >= 1")
-    if grid_stride not in (1, 2):
-        raise ValueError(f"grid_stride must be 1 or 2, got {grid_stride}")
+    if grid_stride < 1:
+        raise ValueError(f"grid_stride must be >= 1, got {grid_stride}")
     h, w = image.shape[-2], image.shape[-1]
     hp, wp = u.shape[-2], u.shape[-1]
     cu, cv = compute_recenter(u, v, radius, grid_stride, coord_mask)
@@ -266,7 +266,9 @@ def tent_sample(
     the (2r_y+1)(2r+1)-tap sweep of the TPU kernels has at most four non-zero
     taps, at floor(d) and floor(d) + 1 on each axis; those are gathered
     from the parity planes and added in the sweep's order (rows ascending;
-    within a row the even column-parity plane first at stride 2).  Taps
+    within a row by column-parity plane, then by column: the second tap,
+    b0 + 1, comes first exactly where s >= 2 and b0 = r + floor(du) lies in
+    plane s - 1).  Taps
     outside [-r_y, r_y] x [-r, r] carry no weight; a NaN displacement gives
     NaN.
     """
@@ -312,7 +314,7 @@ def tent_sample(
         return out
 
     acc = torch.zeros_like(du)
-    swap = (s == 2) & ((rx + kx0) % 2 == 1)
+    swap = (s >= 2) & ((rx + kx0) % s == s - 1)
     for t in range(2):
         (h0, t0), (h1, t1) = terms(ky0 + t, fy + float(t))
         first_h = torch.where(swap, h1, h0)

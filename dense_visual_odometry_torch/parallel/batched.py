@@ -2,12 +2,14 @@
 
 Counterpart of ``dense_visual_odometry_tpu/parallel/batched.py`` without the
 device mesh: B independent frame pairs ride the batch dimension of every
-tensor of one solve.
+tensor of one solve.  :func:`make_batched_tracker` and
+:func:`pad_batch_to_devices` keep the JAX package's calls; on one GPU the
+tracker is :func:`batched_track_pair` with its configuration bound.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,3 +56,24 @@ def batched_track_pair(
         prev, curr, camera, cfg,
         init_guess=init_guess, last_transform=last_transform,
     )
+
+
+def make_batched_tracker(cfg: RobustDVOConfig) -> Callable[..., TrackResult]:
+    """-> ``run(prev, curr, intrinsics, **kw)``: :func:`batched_track_pair`
+    under ``cfg`` (the JAX package's tracker without a mesh)."""
+
+    def run(prev, curr, intrinsics, **kw):
+        return batched_track_pair(prev, curr, intrinsics, cfg, **kw)
+
+    return run
+
+
+def pad_batch_to_devices(frames, n_devices: int) -> Tuple[list, int]:
+    """Pad a list of per-pair items so the batch divides ``n_devices``:
+    -> (padded list, original length).  Padding repeats the last pair;
+    callers slice results back to the original length."""
+    orig = len(frames)
+    if orig == 0:
+        raise ValueError("empty batch")
+    rem = (-orig) % n_devices
+    return list(frames) + [frames[-1]] * rem, orig

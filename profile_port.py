@@ -12,7 +12,7 @@ CONFIG is ``tpu_fast`` (the default), any other name under ``configs/``, or
 one of ``chip_smoke.VARIANTS`` (``parity_affine``, ``parity_esm``,
 ``accurate_lm``, ``fast_prior``, whose batched pairs are anchored as the
 smoke anchors them, ``fast_depth``, ``fast_blocks_ry2``, ``parity_tiles_r2``,
-``slam_tiles_cb48``).  Builds the kernels, then profiles, over the seeded
+``slam_tiles_cb48``, ``fast_stride3``, ``fast_stride4``, ``esm_stride4``).  Builds the kernels, then profiles, over the seeded
 640x480 scene of ``chip_smoke.py``, ``batched_track_pair`` at B=64 over all
 15 consecutive pairs and, where the configuration has level-kernel levels,
 over the pairs that its hard-motion trigger passes at each of them
@@ -52,8 +52,13 @@ smoke's cases that are not bit-equal (``chip_smoke.LAST_BIT_CASES``, the
 single-centre, block and tile ones): for
 each iteration cap the columns and elements of the result rows that differ
 bit for bit, and at the first cap where they part (and the cap before it)
-the same against the plain version with every sum over the pixels added
-exactly (``math.fsum``, on the CPU) and rounded once to float32.
+the same against the plain version on the card with every sum over the
+pixels added exactly (``math.fsum``) and rounded once to float32; and,
+at that first cap, against the plain version that runs the iterations
+before it as ever and adds only that iteration's sums exactly (both sides
+are equal up to there, so the side that rounds as the exact sums do is not
+at fault), with the distance between kernel and plain in float32 steps,
+and the plain version on the CPU against the plain version on the card.
 """
 
 from __future__ import annotations
@@ -190,7 +195,8 @@ def exact_total(x: torch.Tensor) -> torch.Tensor:
     """``level_solver.level_sum`` with each element's pixels added exactly
     (``math.fsum``) and rounded once: -> (B,) float32."""
     rows = x.detach().double().cpu().reshape(x.shape[0], -1)
-    return torch.tensor([math.fsum(r.tolist()) for r in rows], dtype=torch.float64).float()
+    return torch.tensor([math.fsum(r.tolist()) for r in rows], dtype=torch.float64,
+                        device=x.device).float()
 
 
 @contextlib.contextmanager
@@ -203,6 +209,35 @@ def exact_sums():
         yield
     finally:
         ls._reduce.__defaults__, ls._add_depth.__defaults__ = saved
+
+
+@contextlib.contextmanager
+def exact_sums_from(evaluation: int):
+    """The plain level solver with its sums over the pixels exact from its
+    ``evaluation``-th evaluation on (one a loop iteration, counted from 1),
+    and in float64 as ever before it."""
+    ls = cs.level_solver
+    plain_evaluation, calls = ls.level_evaluation, [0]
+
+    def level_evaluation(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] < evaluation:
+            return plain_evaluation(*args, **kwargs)
+        with exact_sums():
+            return plain_evaluation(*args, **kwargs)
+
+    ls.level_evaluation = level_evaluation
+    try:
+        yield
+    finally:
+        ls.level_evaluation = plain_evaluation
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Column -> the largest distance between ``a`` and ``b`` in float32
+    steps over the elements (same-sign values)."""
+    d = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    return {int(c): int(d[:, c].max()) for c in (d.amax(0) > 0).nonzero()[:, 0].tolist()}
 
 
 def bit_partings(frames, poses, cam, dev) -> None:
@@ -226,9 +261,12 @@ def bit_partings(frames, poses, cam, dev) -> None:
                                      term=term, anchors=cs.previous_motions(poses, pairs, dev))
         cpu_args = [a.cpu() for a in args]
         cpu_kw = {n: v.cpu() if isinstance(v, torch.Tensor) else v for n, v in kwargs.items()}
+
         def exact(cap):
+            # On the card, where the plain version's per-pixel float32 terms
+            # are the kernel's (on the CPU some elements part already).
             with exact_sums():
-                return cs.lm_level_plain(*cpu_args, **dict(cpu_kw, max_iterations=cap))
+                return cs.lm_level_plain(*args, **dict(kwargs, max_iterations=cap)).cpu()
 
         parted_yet, p_before = False, None
         for cap in range(1, kwargs["max_iterations"] + 1):
@@ -242,6 +280,16 @@ def bit_partings(frames, poses, cam, dev) -> None:
                 e = exact(cap)
                 row["kernel_vs_exact"] = parted(k, e)
                 row["plain_vs_exact"] = parted(p, e)
+                # The same state after cap - 1 iterations (kernel and plain
+                # are equal there), then this iteration's sums exact: the
+                # side that rounds them as the exact sums do is not at fault.
+                with exact_sums_from(cap):
+                    e1 = cs.lm_level_plain(*args, **dict(kwargs, max_iterations=cap)).cpu()
+                row["plain_cpu_vs_plain"] = parted(
+                    cs.lm_level_plain(*cpu_args, **dict(cpu_kw, max_iterations=cap)), p)
+                row["kernel_vs_one_step_exact"] = parted(k, e1)
+                row["plain_vs_one_step_exact"] = parted(p, e1)
+                row["ulps_kernel_vs_plain"] = ulps(k, p)
                 if p_before is not None:
                     row["cap_before_plain_vs_exact"] = parted(p_before, exact(cap - 1))
             p_before = p

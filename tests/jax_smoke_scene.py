@@ -2,6 +2,7 @@
 tracking errors that ``chip_smoke.BOUNDS`` are set from.
 
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene [--band N] [CONFIG ...]
+    JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --cli
 
 CONFIG is ``tpu_fast`` (the default) or a name of ``chip_smoke.VARIANTS``
 (``fast_prior``, ``fast_depth``, ...).  The scene is the smoke's own
@@ -26,6 +27,12 @@ holds the depth residuals at the true motion of the 15 pairs at level 0
 (``depth_at_truth``).  About 10 minutes a configuration and 5 GB; the
 Pallas kernels run in interpret mode, as the JAX package's own CPU tests
 run them.
+
+``--cli``: the smoke's CLI phase on the CPU instead (``chip_smoke.CLI_BOUNDS``
+are set from it): the directory ``chip_smoke.cli_dataset`` writes, tracked by
+both packages' ``apps.benchmark.run`` with the platform cpu under each of
+``chip_smoke.CLI_CONFIGS``; one JSON line a configuration with both
+summaries' ATE and RPE and how far the trajectories part.
 """
 
 from __future__ import annotations
@@ -126,8 +133,40 @@ def depth_at_truth(scene, cfg: JConfig) -> dict:
             "share_above_huber": float(np.mean(np.abs(r) > cfg.depth_huber_delta * 1e3))}
 
 
+def cli_runs() -> int:
+    """Both packages' benchmark CLI on the smoke's CLI directory."""
+    import tempfile
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from dense_visual_odometry_torch.apps import benchmark as tbench
+    from dense_visual_odometry_tpu.apps import benchmark as jbench
+
+    keys = ("ate_rmse_m", "rpe_trans_rmse_m", "rpe_rot_rmse_rad", "frames")
+    with tempfile.TemporaryDirectory(prefix="dvo_cli_") as tmp:
+        root = Path(tmp)
+        seq_dir, cam = cs.cli_dataset(root)
+        for name in cs.CLI_CONFIGS:
+            row = {"config": name}
+            for side, bench in (("jax", jbench), ("port", tbench)):
+                args = SimpleNamespace(
+                    benchmark="tum", data_dir=str(seq_dir), camera=str(cam),
+                    config=str(cs.config_file(name, root)), size=None, method="robust-dvo",
+                    platform="cpu", output_dir=str(root / f"{side}_{name}"), profile_dir=None,
+                    pipeline=False, host_gray=False, pyr_down=False, verbose=False)
+                summary = bench.run(args)
+                row[side] = {k: summary[k] for k in keys}
+            est = [np.loadtxt(root / f"{side}_{name}" / "trajectory.txt")[:, 1:4]
+                   for side in ("jax", "port")]
+            row["max_abs_translation_diff_m"] = float(np.abs(est[0] - est[1]).max())
+            print(json.dumps(row), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     jax.config.update("jax_platforms", "cpu")
+    if argv[:1] == ["--cli"]:
+        return cli_runs()
     band = 0
     if argv[:1] == ["--band"]:
         band, argv = int(argv[1]), argv[2:]

@@ -236,7 +236,11 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         tfused.fused_evaluation(planes, points, img, jac.transpose(2, 3).contiguous().transpose(2, 3),
                                 scal, **good)
-    with pytest.raises(ValueError, match="grid_stride"):
+    # Every stride >= 1 is taken (the planes then have s^2 parity planes);
+    # stride 0 is refused.
+    with pytest.raises(ValueError, match="grid_stride must be >= 1"):
+        tfused.fused_evaluation(planes, points, img, jac, scal, **{**good, "grid_stride": 0})
+    with pytest.raises(ValueError, match="planes has shape"):
         tfused.fused_evaluation(planes, points, img, jac, scal, **{**good, "grid_stride": 3})
 
 

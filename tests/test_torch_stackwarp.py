@@ -222,8 +222,12 @@ def test_stack_accumulate_checks_inputs():
         tstack.stack_accumulate(planes, d.double(), d, r, 1)
     with pytest.raises(ValueError, match="contiguous"):
         tstack.stack_accumulate(planes, d, torch.zeros(b, wp, hp).transpose(1, 2), r, 1)
-    with pytest.raises(ValueError, match="grid_stride"):
-        tstack.stack_accumulate(planes, d, d, r, 3)
+    # Every stride >= 1 is taken (stride 3: 9 parity planes of 2r // 3 more
+    # rows and columns); stride 0 is refused.
+    with pytest.raises(ValueError, match="grid_stride must be >= 1"):
+        tstack.stack_accumulate(planes, d, d, r, 0)
+    out = tstack.stack_accumulate(torch.zeros(b, 9, 2 * r // 3 + hp, 2 * r // 3 + wp), d, d, r, 3)
+    assert out.shape == (b, hp, wp)
     meta = torch.device("meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         tstack.stack_accumulate(planes.to(meta), d.to(meta), d.to(meta), r, 1)

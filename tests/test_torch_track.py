@@ -181,21 +181,6 @@ def _blank_frames():
     )
 
 
-@pytest.mark.parametrize(
-    "change",
-    [{"grid_strides": (3, 2, 1, 1)}],
-    ids=lambda d: next(iter(d)),
-)
-def test_unported_branches_raise(change):
-    """Branches no shipped configuration takes raise, naming port queue item
-    1: grid strides other than 1 and 2 where a kernel samples the level."""
-    base = TConfig.from_json(CONFIGS / "tpu_fast.json").__dict__
-    cfg = TConfig(**{**base, **change})
-    frames = _blank_frames()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, port queue item 1"):
-        trobust.track_pair(frames, frames, TCamera.create(np.eye(3), 1.0), cfg)
-
-
 @pytest.mark.parametrize("config_class", [JConfig, TConfig], ids=["jax", "port"])
 def test_esm_on_an_unfrozen_fused_level_is_refused(config_class):
     """ESM gradients at a "fused" level are averaged into the frozen
@@ -213,6 +198,7 @@ def test_esm_on_an_unfrozen_fused_level_is_refused(config_class):
         {"init_scale_ladder": (0.5,)}, {"lm_lambda0": None},
         {"use_fused_iteration": False}, {"shift_stack_levels": (0, 1)},
         {"shift_stack_levels": (0, 1, 2), "grid_strides": (2, 2, 1, 3)},
+        {"grid_strides": (3, 2, 1, 1)}, {"grid_strides": (4, 2, 1, 1)},
         {"sigma": 1.0}, {"use_depth_residuals": True},
         {"recenter_blocks": 2}, {"recenter_blocks": 3, "shift_stack_radius_y": 2},
         {"recenter_blocks": 2, "recenter_col_blocks": 2, "recenter_center_bound": 20},
@@ -221,8 +207,10 @@ def test_esm_on_an_unfrozen_fused_level_is_refused(config_class):
 )
 def test_ported_branches_run(change):
     """Branches ported since the first slice run, on frames without valid
-    depth (every element fails, nothing raises); a stride other than 1 or 2
-    is taken at a level off the kernels."""
+    depth (every element fails, nothing raises); strides 3 and 4 at a level
+    kernel level, and a stride of 3 at a level off the kernels.
+    ``tests/test_torch_strides.py`` holds the strides against the JAX
+    package."""
     base = TConfig.from_json(CONFIGS / "tpu_fast.json").__dict__
     cfg = TConfig(**{**base, **change})
     frames = _blank_frames()
