@@ -4,8 +4,11 @@ The port of ``dense_visual_odometry_tpu`` (the JAX package, kept beside it as
 the reference).  It carries frame-to-frame robust photometric odometry under
 every shipped configuration (``configs/*.json``): ``models.robust.track_pair``,
 ``parallel.batched.batched_track_pair``, ``models.session.OdometrySession``
-and the multi-stream ``models.batched_session.BatchedOdometrySession``.
-The three kernels of that path live in ``ops/cuda``; each has a plain
+and the multi-stream ``models.batched_session.BatchedOdometrySession``, and
+the SLAM back end on one device: keyframe SLAM (``models.slam.SlamSession``,
+``models.batched_slam.BatchedSlamSession``), the windowed pose graph
+(``models.posegraph``) and dense bundle adjustment (``models.dense_ba``).
+The three kernels of the tracker live in ``ops/cuda``; each has a plain
 PyTorch version that the CPU runs.
 
 Geometry stays in full float32: TF32 is switched off for matrix products

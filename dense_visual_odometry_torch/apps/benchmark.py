@@ -17,8 +17,11 @@ keeps it apart from the steady state.  ``fps`` (the JAX package's
 definition) times the tracking step alone, after the first frame;
 ``read_s`` is the part of ``total_time_s`` spent waiting for frames to be
 read, and ``frames / total_time_s`` the rate a replay of the sequence
-runs at.  ``-m slam`` and ``-m sparse`` are
-not ported yet and raise.
+runs at.  ``-m slam`` runs keyframe SLAM (``models/slam.py``; with
+``--slam-two-step`` and ``--slam-refine-caps`` the two-step front end, with
+``--dense-refine`` a global pose graph and dense BA after the run) and
+reports the BA-optimized trajectory and the keyframe count; ``-m sparse``
+is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ from typing import Iterable, Iterator
 logger = logging.getLogger("dvo.benchmark")
 
 UNPORTED_METHODS = {
-    "slam": "the SLAM back end (ROADMAP.md, Queue 1 item 3)",
     "sparse": "the sparse pipeline (ROADMAP.md, Queue 1 item 5)",
 }
 
@@ -50,7 +52,7 @@ def parse_args(argv=None):
     parser.add_argument("-m", "--method", type=str, default="robust-dvo",
                         choices=["robust-dvo", "slam", "sparse"],
                         help="tracking pipeline (robust-dvo, the frame-to-frame solver; "
-                        "slam and sparse are not ported yet)")
+                        "slam, keyframe SLAM; sparse is not ported yet)")
     parser.add_argument("--platform", type=str, default=None, choices=["cuda", "cpu"],
                         help="device to run on (default: the GPU; cpu runs the kernels' "
                         "plain versions)")
@@ -59,6 +61,16 @@ def parse_args(argv=None):
     parser.add_argument("--pipeline", action="store_true",
                         help="depth-1 pipelined stepping: dispatch frame k+1 before "
                         "reading frame k's pose (poses lag by one frame during the run)")
+    parser.add_argument("--slam-refine-caps", type=str, default=None,
+                        help="two-step SLAM: per-level refinement caps, finest first, "
+                        "e.g. 6,4,3,3")
+    parser.add_argument("--slam-two-step", action="store_true",
+                        help="SLAM: frame-to-frame solve, then a short frame-to-keyframe "
+                        "refinement (KeyframePolicy.two_step_tracking)")
+    parser.add_argument("--dense-refine", action="store_true",
+                        help="SLAM only: after the run, a global pose graph and dense "
+                        "photometric BA over the retained keyframes (joint pose + inverse "
+                        "depth), the refined depths fed back into the keyframes")
     parser.add_argument("--host-gray", action="store_true",
                         help="convert RGB to uint8 gray on the host before upload "
                         "(the reference's uint8-gray semantics; a smaller upload)")
@@ -69,9 +81,40 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _make_stepper(seq, cfg, device, host_gray: bool = False):
-    """-> step(rgb, depth) -> (4, 4) pose tensor on the device, of the
-    robust-dvo method (an ``OdometrySession``)."""
+def _make_stepper(method: str, seq, cfg, device, host_gray: bool = False,
+                  dense_refine: bool = False, slam_two_step: bool = False,
+                  slam_refine_caps=None):
+    """-> (step(rgb, depth) -> (4, 4) pose tensor, finalize() -> dict of
+    summary entries) of the method: an ``OdometrySession`` for robust-dvo
+    (its pose stays on the device), a ``SlamSession`` for slam."""
+    if method == "slam":
+        from dense_visual_odometry_torch.models.slam import KeyframePolicy, SlamSession
+
+        policy = None
+        if slam_two_step:
+            kw = {}
+            if slam_refine_caps:
+                kw["refine_max_iterations"] = tuple(
+                    int(x) for x in str(slam_refine_caps).split(","))
+            policy = KeyframePolicy(two_step_tracking=True, **kw)
+        slam = SlamSession(seq.camera, cfg, policy=policy, device=device)
+
+        def step(rgb, depth):
+            return slam.step(rgb, depth).matrix
+
+        def finalize():
+            extra = {"keyframes": slam.num_keyframes}
+            if dense_refine:
+                # The pose graph first (loop closures), then the dense
+                # photometric pass over the retained keyframes, its refined
+                # depths fed back into their pyramids.
+                slam.optimize_full()
+                extra["dense_refined"] = slam.refine_dense(update_depths=True) is not None
+            extra["optimized_poses"] = slam.optimized_trajectory()
+            return extra
+
+        return step, finalize
+
     from dense_visual_odometry_torch.io.datasets import host_gray_u8
     from dense_visual_odometry_torch.models.session import OdometrySession
 
@@ -81,7 +124,7 @@ def _make_stepper(seq, cfg, device, host_gray: bool = False):
         # The pose stays on the device, so the caller may pipeline.
         return session.step(host_gray_u8(rgb) if host_gray else rgb, depth).matrix
 
-    return step
+    return step, dict
 
 
 def backend_name(device) -> str:
@@ -142,7 +185,12 @@ def run(args) -> dict:
     logger.info("sequence '%s': %d frames; config: %s", seq.name, len(seq), cfg)
     logger.info("device: %s; frames read by: %s", backend_name(device), frame_route())
 
-    step = _make_stepper(seq, cfg, device, host_gray=args.host_gray)
+    step, finalize = _make_stepper(
+        args.method, seq, cfg, device, host_gray=args.host_gray,
+        dense_refine=bool(getattr(args, "dense_refine", False)),
+        slam_two_step=bool(getattr(args, "slam_two_step", False)),
+        slam_refine_caps=getattr(args, "slam_refine_caps", None),
+    )
     profiler = None
     if args.profile_dir:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -154,7 +202,7 @@ def run(args) -> dict:
     def host(pose) -> np.ndarray:
         return pose.detach().cpu().numpy().astype(np.float64)
 
-    pipeline = args.pipeline
+    pipeline = args.pipeline and args.method == "robust-dvo"
     poses, frame_times = [], []
     pending = None
     read_time = [0.0]
@@ -193,7 +241,11 @@ def run(args) -> dict:
         profiler.export_chrome_trace(str(out_dir / "trace.json"))
         logger.info("profiler trace -> %s", out_dir / "trace.json")
 
+    extra = finalize()
     poses = np.stack(poses)
+    if "optimized_poses" in extra:
+        # SLAM: report the BA-optimized trajectory.
+        poses = np.asarray(extra.pop("optimized_poses"))
     steady = frame_times[1:] if len(frame_times) > 1 else frame_times
     summary = {
         "frames": len(seq),
@@ -205,6 +257,7 @@ def run(args) -> dict:
         "fps": float(1.0 / np.mean(steady)),
         "read_s": read_time[0],
         "backend": backend_name(device),
+        **extra,
     }
 
     if seq.gt_poses is not None:

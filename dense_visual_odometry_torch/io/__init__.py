@@ -1,5 +1,6 @@
 """Data in and out: RGB-D sequences (TUM directories, the bundled set),
-PNG files, trajectories and reports, session checkpoints, synthetic data."""
+PNG files, trajectories and reports, odometry and SLAM checkpoints, synthetic
+data."""
 
 from dense_visual_odometry_torch.io.datasets import (  # noqa: F401
     RGBDSequence,

@@ -6,7 +6,9 @@
 streams, same frames; the depth degradation's 3x3 dilation and erosion in
 numpy rather than OpenCV);
 ``textured_scene`` makes the source frame itself from a seed: a smooth
-multi-scale texture over bumpy depth, seen by the TUM fr1 pinhole.
+multi-scale texture over bumpy depth, seen by the TUM fr1 pinhole;
+``revisit_sequence`` renders it as a SLAM scene with a relocalization and
+loop closures under ``REVISIT_POLICY``.
 """
 
 from __future__ import annotations
@@ -371,3 +373,50 @@ def render_sequence(
         grays.append(g)
         depths.append(d)
     return grays, depths
+
+
+# The keyframe policy (``models.slam.KeyframePolicy`` keyword arguments) that
+# ``revisit_sequence`` is built for: its blank frames exceed the error gate,
+# and the frames after them stay lost past ``relocalize_after``.
+REVISIT_POLICY = dict(max_translation=0.03, max_rotation=0.07, window=4, loop_min_gap=2,
+                      track_max_error=500.0, relocalize_after=2,
+                      relocalize_min_similarity=0.5)
+REVISIT_SWEEP = 8  # frames of the sweep
+REVISIT_BLANK = REVISIT_POLICY["relocalize_after"] + 1  # blank frames after it
+
+
+def yaw_pose(yaw: float, t) -> np.ndarray:
+    """A (4, 4) pose: a rotation of ``yaw`` about y, then translation ``t``."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    p = np.eye(4)
+    p[:3, :3] = [[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]
+    p[:3, 3] = t
+    return p
+
+
+def revisit_sequence(height: int, width: int, seed: int = 0, band: int = 0):
+    """A SLAM scene -> (intrinsics, [(gray, depth_m)], [truth or None]).
+
+    ``textured_scene(height, width, seed)`` along a sweep of REVISIT_SWEEP
+    frames that yaws 0.04 rad and moves 11 mm a frame, REVISIT_BLANK blank
+    frames (lost through the error gate), a view 5 mm from the start (too far
+    from the yawed-away keyframe to track: lost, then relocalized at keyframe
+    0), then the sweep's frames 1-4 again 3 mm lower (returns to earlier
+    views: loop closures).  The returns are new views, not copies: a copy
+    aligns to zero residuals, where the IRLS weights follow float32 rounding.
+    ``band`` pixels of depth along each border are made invalid.
+    """
+    gray, depth, k = textured_scene(height, width, seed=seed)
+    sweep = [yaw_pose(-0.04 * t, [0.01 * t, 0.0, 0.005 * t]) for t in range(REVISIT_SWEEP)]
+    back = [p @ yaw_pose(0.0, [0.0, 0.003, 0.0]) for p in sweep[1:5]]
+    truths = sweep + [None] * REVISIT_BLANK + [yaw_pose(0.0, [0.005, 0.0, 0.0])] + back
+
+    def view(pose):
+        if pose is None:
+            return np.zeros((height, width), np.float32), np.zeros((height, width), np.float32)
+        g, d = render_view(gray, depth, k, np.linalg.inv(pose))
+        if band:
+            d[:band], d[-band:], d[:, :band], d[:, -band:] = 0, 0, 0, 0
+        return g, d
+
+    return k, [view(p) for p in truths], truths

@@ -3,6 +3,7 @@ tracking errors that ``chip_smoke.BOUNDS`` are set from.
 
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene [--band N] [CONFIG ...]
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --cli
+    JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --slam
 
 CONFIG is ``tpu_fast`` (the default) or a name of ``chip_smoke.VARIANTS``
 (``fast_prior``, ``fast_depth``, ...).  The scene is the smoke's own
@@ -27,6 +28,17 @@ holds the depth residuals at the true motion of the 15 pairs at level 0
 (``depth_at_truth``).  About 10 minutes a configuration and 5 GB; the
 Pallas kernels run in interpret mode, as the JAX package's own CPU tests
 run them.
+
+``--slam``: the smoke's SLAM phase (6) on the CPU instead
+(``chip_smoke.SLAM_BOUNDS`` and ``SLAM_CLI_BOUNDS`` are set from it): a
+``SlamSession`` of each package under ``configs/tpu_slam.json`` and
+``chip_smoke.SLAM_POLICY``, direct and two-step, over the 16 frames, one
+JSON line a mode with the keyframes, loop closures and the largest
+errors of the front-end poses and of ``optimized_trajectory``; then both
+packages' ``apps.benchmark -m slam`` (plain, ``--slam-two-step``,
+``--dense-refine``) on the CLI directory, one line a run with ATE and RPE.
+The JAX package's Pallas kernels run in interpret mode at 640x480: about
+an hour and 6 GB.
 
 ``--cli``: the smoke's CLI phase on the CPU instead (``chip_smoke.CLI_BOUNDS``
 are set from it): the directory ``chip_smoke.cli_dataset`` writes, tracked by
@@ -163,10 +175,66 @@ def cli_runs() -> int:
     return 0
 
 
+def slam_runs() -> int:
+    """Both packages' SLAM on the smoke's scene and through the CLI."""
+    import tempfile
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from dense_visual_odometry_torch.apps import benchmark as tbench
+    from dense_visual_odometry_torch.models.slam import SlamSession as TSlam
+    from dense_visual_odometry_tpu.apps import benchmark as jbench
+    from dense_visual_odometry_tpu.models.slam import KeyframePolicy as JPolicy
+    from dense_visual_odometry_tpu.models.slam import SlamSession as JSlam
+
+    grays, depths, k_np, poses = cs.make_sequence()
+    truths = list(poses)
+    for mode, extra in cs.SLAM_MODES.items():
+        kw = {**cs.SLAM_POLICY, **extra}
+        row = {"mode": mode, "policy": kw}
+        for side in ("jax", "port"):
+            if side == "jax":
+                sess = JSlam(JCamera.create(k_np, 1.0), jax_config(cs.SLAM_CONFIG), JPolicy(**kw))
+            else:
+                sess = TSlam(cs.CameraModel.create(k_np, 1.0), cs.config(cs.SLAM_CONFIG),
+                             cs.slam_policy(**kw), device="cpu")
+            for g, d in zip(grays, depths):
+                sess.step(g, d)
+            front = np.stack([np.asarray(p, np.float64) for p in sess.frame_poses])
+            row[side] = {"keyframe_indices": list(sess.keyframe_indices),
+                         "loop_closures": [[a, b] for a, b, _ in sess.loop_closures],
+                         "front": cs.slam_errors(front, truths),
+                         "optimized": cs.slam_errors(sess.optimized_trajectory(), truths)}
+            row[f"{side}_poses"] = front
+        row["max_abs_pose_diff"] = float(np.abs(row.pop("jax_poses") - row.pop("port_poses")).max())
+        print(json.dumps(row), flush=True)
+
+    keys = ("ate_rmse_m", "rpe_trans_rmse_m", "rpe_rot_rmse_rad", "frames", "keyframes")
+    with tempfile.TemporaryDirectory(prefix="dvo_cli_") as tmp:
+        root = Path(tmp)
+        seq_dir, cam = cs.cli_dataset(root)
+        for name, flags in cs.SLAM_CLI_RUNS.items():
+            row = {"run": name}
+            for side, bench in (("jax", jbench), ("port", tbench)):
+                args = SimpleNamespace(
+                    benchmark="tum", data_dir=str(seq_dir), camera=str(cam),
+                    config=str(cs.CONFIGS / f"{cs.SLAM_CONFIG}.json"), size=None,
+                    method="slam", platform="cpu", output_dir=str(root / f"{side}_{name}"),
+                    profile_dir=None, pipeline=False, host_gray=False, pyr_down=False,
+                    verbose=False, slam_two_step="--slam-two-step" in flags,
+                    slam_refine_caps=None, dense_refine="--dense-refine" in flags)
+                summary = bench.run(args)
+                row[side] = {k: summary[k] for k in keys}
+            print(json.dumps(row), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     jax.config.update("jax_platforms", "cpu")
     if argv[:1] == ["--cli"]:
         return cli_runs()
+    if argv[:1] == ["--slam"]:
+        return slam_runs()
     band = 0
     if argv[:1] == ["--band"]:
         band, argv = int(argv[1]), argv[2:]

@@ -18,7 +18,12 @@ Then ``apps.evaluate`` prints the JAX package's JSON on the same files
 (counts equal, errors within 1e-9: both read each pose's quaternion into a
 float32 matrix, and XLA:CPU's fused multiply-adds round some entries one
 float32 step apart from PyTorch's);
-``-m slam`` / ``-m sparse`` raise naming their ROADMAP items; without a GPU
+``-m sparse`` raises naming its ROADMAP item; ``-m slam`` runs under
+``tpu_slam`` (plain, ``--slam-two-step``, with ``--slam-refine-caps`` and
+with ``--dense-refine``) and reports the SLAM session's optimized
+trajectory and its keyframes, and plain and with ``--dense-refine`` it
+matches the JAX package's ``-m slam`` under ``test_torch_slam.CFG``; without
+a GPU
 the default platform raises; ``--pipeline``, ``--host-gray``,
 ``--pyr-down``, ``-s`` and ``--profile-dir`` run; ``make_batched_tracker``
 and ``pad_batch_to_devices`` agree with the JAX package's.
@@ -132,10 +137,164 @@ def test_evaluate_matches_jax(runs, dataset, capsys):
     assert t["pairs"] >= N_FRAMES - 1
 
 
-@pytest.mark.parametrize("method, item", [("slam", "item 3"), ("sparse", "item 5")])
+@pytest.mark.parametrize("method, item", [("sparse", "item 5")])
 def test_unported_methods_raise(method, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
         tbench.run(args(method=method, data_dir="missing"))
+
+
+SLAM_FLAGS = {"slam": {}, "slam_two_step": {"slam_two_step": True},
+              "slam_caps": {"slam_two_step": True, "slam_refine_caps": "4,3,2,2"},
+              "slam_dense_refine": {"dense_refine": True}}
+# The CLI takes the default policy (0.15 m), which promotes no frame of the 5
+# here; the tests lower its translation threshold so that the runs promote
+# and the dense refinement has two keyframes.
+SLAM_TRANSLATION = 0.02
+
+
+def _lowered_policy(monkeypatch, slam_module=None, translation=SLAM_TRANSLATION):
+    """Lower the translation threshold of the policy that ``slam_module``'s
+    ``SlamSession`` and ``apps.benchmark`` build (default: the port's)."""
+    import dataclasses
+
+    from dense_visual_odometry_torch.models import slam as tslam
+
+    module = slam_module or tslam
+    base = module.KeyframePolicy
+    monkeypatch.setattr(module, "KeyframePolicy", lambda **kw: dataclasses.replace(
+        base(**kw), max_translation=translation))
+
+
+@pytest.fixture(scope="module")
+def slam_runs(dataset, tmp_path_factory):
+    """``-m slam`` under ``configs/tpu_slam.json`` on the directory, plain,
+    two-step, two-step with caps and with ``--dense-refine``."""
+    seq, cam, _ = dataset
+    out = tmp_path_factory.mktemp("slam_runs")
+    kw = dict(data_dir=str(seq), camera=str(cam), method="slam",
+              config=str(ROOT / "configs" / "tpu_slam.json"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small CPU ops: see test_torch_slam.one_torch_thread
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            _lowered_policy(mp)
+            return {name: (tbench.run(args(**kw, **flags, output_dir=str(out / name))),
+                           out / name)
+                    for name, flags in SLAM_FLAGS.items()}
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("name", sorted(SLAM_FLAGS))
+def test_slam_method_runs(slam_runs, name):
+    """Each run writes its report and trajectory, reports its keyframes,
+    and tracks the directory within 2 mm (ATE)."""
+    summary, out_dir = slam_runs[name]
+    assert sorted(p.name for p in out_dir.iterdir()) == ["report.json", "trajectory.txt"]
+    assert summary["method"] == "slam" and summary["frames"] == N_FRAMES
+    assert summary["keyframes"] >= 2 and summary["backend"] == "cpu"
+    assert summary["ate_rmse_m"] < 2e-3
+    report = json.loads((out_dir / "report.json").read_text())
+    assert report["summary"]["keyframes"] == summary["keyframes"]
+    assert summary.get("dense_refined", False) == (name == "slam_dense_refine")
+    traj = np.loadtxt(out_dir / "trajectory.txt")
+    assert traj.shape == (N_FRAMES, 8) and np.isfinite(traj).all()
+
+
+def test_slam_reports_the_optimized_trajectory(slam_runs, dataset):
+    """The trajectory of ``-m slam`` is the SLAM session's
+    ``optimized_trajectory`` (the JAX package's report), and
+    ``--slam-refine-caps`` reaches the policy."""
+    from dense_visual_odometry_torch.io.datasets import load_tum_sequence
+    from dense_visual_odometry_torch.models.slam import KeyframePolicy, SlamSession
+
+    seq_dir, cam, _ = dataset
+    seq = load_tum_sequence(str(seq_dir), camera_yaml=str(cam))
+    sess = SlamSession(seq.camera, TConfig.from_json(ROOT / "configs" / "tpu_slam.json"),
+                       KeyframePolicy(max_translation=SLAM_TRANSLATION), device="cpu")
+    for rgb, depth in seq:
+        sess.step(rgb, depth)
+    traj = np.loadtxt(slam_runs["slam"][1] / "trajectory.txt")
+    np.testing.assert_allclose(traj[:, 1:4], sess.optimized_trajectory()[:, :3, 3], atol=1e-6)
+    caps, plain = (np.loadtxt(slam_runs[n][1] / "trajectory.txt") for n in
+                   ("slam_caps", "slam_two_step"))
+    assert np.abs(caps[:, 1:4] - plain[:, 1:4]).max() > 0
+
+
+SLAM_PARITY = ("slam", "slam_dense_refine")
+# The parity runs' threshold: keyframes at frames 0 and 3, so that frame 4
+# hangs off the second keyframe and the dense refinement, which holds the
+# first keyframe, moves it (at SLAM_TRANSLATION every frame hangs off
+# keyframe 0 and the refinement leaves the trajectory as it was).
+PARITY_TRANSLATION = 0.015
+
+
+@pytest.fixture(scope="module")
+def slam_parity_runs(dataset, tmp_path_factory):
+    """``-m slam``, plain and with ``--dense-refine``, through both packages'
+    CLI under ``test_torch_slam.CFG`` (no level kernel: ``tpu_slam``'s
+    Pallas kernels would run in interpret mode in the JAX package, a minute
+    a compile here) with the lowered policy -> {name: {side: (summary,
+    directory)}}."""
+    from dense_visual_odometry_torch.models import slam as tslam
+    from dense_visual_odometry_tpu.models import slam as jslam
+    from tests.test_torch_slam import CFG
+
+    seq, cam, _ = dataset
+    out = tmp_path_factory.mktemp("slam_parity")
+    cfg = out / "slam_cpu.json"
+    cfg.write_text(json.dumps(CFG))
+    kw = dict(data_dir=str(seq), camera=str(cam), method="slam", config=str(cfg))
+    runs = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # small CPU ops: see test_torch_slam.one_torch_thread
+    try:
+        for name in SLAM_PARITY:
+            runs[name] = {}
+            for side, bench, module in (("port", tbench, tslam), ("jax", jbench, jslam)):
+                with pytest.MonkeyPatch.context() as mp:
+                    _lowered_policy(mp, module, PARITY_TRANSLATION)
+                    d = out / f"{side}_{name}"
+                    runs[name][side] = (bench.run(args(**kw, **SLAM_FLAGS[name],
+                                                       output_dir=str(d))), d)
+    finally:
+        torch.set_num_threads(threads)
+    return runs
+
+
+@pytest.mark.parametrize("name", SLAM_PARITY)
+def test_slam_cli_matches_jax(slam_parity_runs, name):
+    """The port's ``-m slam`` against the JAX package's on the CPU: the same
+    keyframes, the report's poses (the optimized trajectory, after the dense
+    refinement where asked) within ``test_torch_slam.BA_ATOL`` (5e-5: the
+    poses that the pose graph moves, it says why), the errors within that
+    of the truth, and the trajectory file to its printed precision."""
+    from tests.test_torch_slam import BA_ATOL
+
+    (t, t_dir), (j, j_dir) = (slam_parity_runs[name][side] for side in ("port", "jax"))
+    assert t.keys() == j.keys() | {"read_s"}
+    assert t["keyframes"] == j["keyframes"] >= 2
+    assert t.get("dense_refined") == j.get("dense_refined")
+    for key in ("ate_rmse_m", "rpe_trans_rmse_m", "mean_trans_err_m"):
+        assert abs(t[key] - j[key]) <= BA_ATOL, key
+    t_rep = json.loads((t_dir / "report.json").read_text())
+    j_rep = json.loads((j_dir / "report.json").read_text())
+    assert t_rep.keys() == j_rep.keys()
+    for key in ("estimated_poses", "transformations"):
+        np.testing.assert_allclose(t_rep[key], j_rep[key], atol=BA_ATOL)
+    t_traj = np.loadtxt(t_dir / "trajectory.txt")
+    j_traj = np.loadtxt(j_dir / "trajectory.txt")
+    np.testing.assert_array_equal(t_traj[:, 0], j_traj[:, 0])
+    np.testing.assert_allclose(t_traj[:, 1:], j_traj[:, 1:], atol=BA_ATOL + 1e-6)
+
+
+def test_slam_cli_dense_refine_moves_the_poses(slam_parity_runs):
+    """In both packages ``--dense-refine`` changes the reported trajectory
+    (the comparison above holds a refinement that ran)."""
+    for side in ("port", "jax"):
+        plain, refined = (np.loadtxt(slam_parity_runs[n][side][1] / "trajectory.txt")
+                          for n in SLAM_PARITY)
+        assert np.abs(plain[:, 1:4] - refined[:, 1:4]).max() > 1e-5, side
 
 
 def test_default_platform_is_the_gpu(dataset):
