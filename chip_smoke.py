@@ -96,13 +96,30 @@ Phases, each printing one JSON line:
    directory on the card and on the CPU (the same keyframes, poses within
    ``SLAM_POSE_ATOL`` before the dense refinement), the refinement from
    each state, from one state and after a move of ``REFINE_PERTURB_M`` (ATE
-   within the same bound); it prints each on a line of its own.
+   within the same bound); it prints each on a line of its own;
+7. mapping, with its own launch counts: ``apps.reconstruct`` on phase 5's
+   directory under ``configs/tpu_fast.json`` (``MAPPING_RUNS``): (a) the
+   session's poses fused into the dense volume (``--resolution 192``) and
+   (b) into the brick volume (``--brick``, ``.obj``), (c) ``-m
+   track-model`` (keyframe renders, the splat), (d) with ``--track-kinfu``
+   (a march every frame) and (e) with ``--track-brick`` too; each run's ATE
+   and its mesh's median |z - true depth| in frame 0 within
+   ``MAPPING_BOUNDS``; (a)'s and (b)'s 30 fusions repeated on the CPU from
+   the same frames and poses (fields equal but for a bounded share of tie
+   voxels); the splat and march renders of (a)'s volume and the brick march
+   of (b)'s at frame 0's pose on the card and on the CPU from one volume
+   (``MAPPING_RENDER_SHARE`` of the pixels within tolerance); the level and
+   fused kernels must launch in (c)-(e); it prints fusion ms a frame, render
+   ms at 640x480, the track-model steps' median ms, frames/s and host reads
+   of a step, mesh extraction s, vertices and faces, bricks used and dropped
+   and volume bytes, each timing beside the card's name and power limit.
 
 Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers (the
 level kernel's row with a ``variants`` entry for its depth, prior, row-block
 and tile variants; each kernel's with a ``strides`` entry for its
-runtime-stride variant at strides 3 and 4, its ``cli_launches`` and its
-``slam_launches``), and last ``{"ok": true, "device": {...}}``.  A failed check raises and exits
+runtime-stride variant at strides 3 and 4, its ``cli_launches``, its
+``slam_launches`` and its ``mapping_launches``), and last ``{"ok": true,
+"device": {...}}``.  A failed check raises and exits
 non-zero before that line; without a GPU the script exits non-zero at once.
 """
 
@@ -1530,6 +1547,308 @@ def run_slam(grays, depths, k_np, poses, dev, root: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: mapping (apps.reconstruct on phase 5's directory).
+# ---------------------------------------------------------------------------
+
+# The five reconstruct runs under configs/tpu_fast.json: (a) the session's
+# poses fused into the dense volume at the default --resolution 192, (b) the
+# same into the brick volume (the default --pool 32768), (c)-(e) frame-to-model
+# tracking: keyframe renders (splat), KinectFusion (a march every frame) on
+# the dense and on the brick tracking volume; each mesh from the dense volume.
+MAPPING_CONFIG = "tpu_fast"
+MAPPING_RUNS = {
+    "dense": ["-o", "dense.ply"],
+    "brick": ["--brick", "-o", "brick.obj"],
+    "track_model": ["-m", "track-model", "-o", "track_model.ply"],
+    "track_kinfu": ["-m", "track-model", "--track-kinfu", "-o", "track_kinfu.ply"],
+    "track_kinfu_brick": ["-m", "track-model", "--track-kinfu", "--track-brick",
+                          "-o", "track_kinfu_brick.ply"],
+}
+TRACK_RUNS = ("track_model", "track_kinfu", "track_kinfu_brick")
+# Three times the JAX package's errors on the same directory on the CPU
+# (``tests/jax_smoke_scene.py --mapping``): the ATE of each run's poses and
+# the median |z - true depth| of its mesh's vertices in frame 0, in mm.
+MAPPING_BOUNDS = {
+    "dense": {"ate_mm": 7.72, "surface_mm": 6.54},  # JAX 2.5715, 2.1794
+    "brick": {"ate_mm": 7.72, "surface_mm": 6.54},  # JAX 2.5715, 2.1797
+    "track_model": {"ate_mm": 1173.0, "surface_mm": 155.6},  # JAX 390.83, 51.855
+    "track_kinfu": {"ate_mm": 24.28, "surface_mm": 25.68},  # JAX 8.0900, 8.5574
+    "track_kinfu_brick": {"ate_mm": 25.20, "surface_mm": 23.17},  # JAX 8.3991, 7.7209
+}
+# The card against the port's CPU path from the same frames and poses: the
+# fused fields (weights equal, gray within two float32 ulps at 128-256, the
+# SDF within two ulps of a camera depth at 2-4 m once in meters) on all but
+# the tie voxels (a projection at a half pixel may round to either neighbour
+# when the pose parts by an ulp), at most MAPPING_TIE_SHARE of the observed
+# voxels; renders of the final volume at frame 0's pose: the splat's
+# validity and gray equal and depth within MAPPING_SPLAT_ATOL, the marches'
+# depth within MAPPING_MARCH_ATOL, on MAPPING_RENDER_SHARE of the pixels.
+MAPPING_GRAY_ATOL = 3.1e-5
+MAPPING_TSDF_ATOL_M = 4.8e-7
+MAPPING_TIE_SHARE = 1e-3
+MAPPING_SPLAT_ATOL = 4.8e-7
+MAPPING_MARCH_ATOL = 1e-5
+MAPPING_RENDER_SHARE = 0.995
+MAPPING_READS_AT = 10  # the track-model step whose host reads are counted
+
+
+def true_depth0() -> np.ndarray:
+    """Frame 0 of phase 5's directory before the sensor model: the source
+    scene rendered at the first pose of its trajectory."""
+    from dense_visual_odometry_torch.apps import make_dataset
+
+    gray, depth, k = synthetic.textured_scene(make_dataset.SOURCE_HEIGHT,
+                                              make_dataset.SOURCE_WIDTH, seed=SEED)
+    pose0 = synthetic.handheld_trajectory(CLI_FRAMES, seed=SEED)[:1]
+    return synthetic.render_sequence(gray, depth, k, pose0)[1][0]
+
+
+def mesh_vertices(path: Path) -> np.ndarray:
+    """(V, 3) vertices of an ASCII PLY or OBJ mesh as written by
+    ``save_mesh_ply`` / ``save_mesh_obj`` (either package's)."""
+    lines = path.read_text().splitlines()
+    if path.suffix == ".obj":
+        return np.array([[float(x) for x in ln.split()[1:4]] for ln in lines
+                         if ln.startswith("v ")]).reshape(-1, 3)
+    n = int(next(ln for ln in lines if ln.startswith("element vertex")).split()[-1])
+    start = lines.index("end_header") + 1
+    return np.array([[float(x) for x in ln.split()[:3]]
+                     for ln in lines[start:start + n]]).reshape(-1, 3)
+
+
+def mapping_errors(poses: np.ndarray, gt_poses: np.ndarray, mesh: Path, k: np.ndarray,
+                   depth0: np.ndarray) -> dict:
+    """ATE of ``poses`` against the truth relative to frame 0, and the median
+    |z - true depth| of the mesh's vertices that project into frame 0 (the
+    trajectory's origin) onto a pixel with depth, both in mm."""
+    from dense_visual_odometry_torch import metrics
+
+    gt_rel = np.einsum("ij,njk->nik", np.linalg.inv(gt_poses[0]), gt_poses)
+    ate, _ = metrics.ate_rmse(poses, gt_rel)
+    v = mesh_vertices(mesh)
+    z = v[:, 2]
+    front = z > 1e-6
+    u = np.round(k[0, 0] * v[front, 0] / z[front] + k[0, 2]).astype(np.int64)
+    w = np.round(k[1, 1] * v[front, 1] / z[front] + k[1, 2]).astype(np.int64)
+    h_img, w_img = depth0.shape
+    inside = (u >= 0) & (u < w_img) & (w >= 0) & (w < h_img)
+    truth = depth0[w[inside], u[inside]]
+    seen = truth > 0
+    err = np.abs(z[front][inside][seen] - truth[seen])
+    return {"ate_mm": float(ate * 1e3), "surface_mm": float(np.median(err) * 1e3),
+            "surface_vertices": int(err.size), "vertices": int(len(v))}
+
+
+def reconstruct_argv(seq_dir: Path, cam: Path, out: Path, name: str, dev=None) -> list:
+    """``apps.reconstruct``'s arguments for a run of MAPPING_RUNS (on the
+    GPU, or with ``dev`` the CPU, on the CPU)."""
+    flags = list(MAPPING_RUNS[name])
+    flags[flags.index("-o") + 1] = str(out / flags[flags.index("-o") + 1])
+    if dev is not None and dev.type == "cpu":
+        flags += ["--platform", "cpu"]
+    return ["tum", "-d", str(seq_dir), "--camera", str(cam),
+            "-c", str(CONFIGS / f"{MAPPING_CONFIG}.json"), *flags]
+
+
+def wall_ms(fn, reps: int, dev) -> float:
+    """Median host-to-host time of ``fn`` (a chain of many launches) over
+    ``reps`` runs after one warm-up, synchronized."""
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def field_parts(card, cpu, truncation: float) -> dict:
+    """Voxels of two volumes' (tsdf, weight, gray) that part beyond the
+    MAPPING_* tolerances, against the observed voxels."""
+    tsdf_a, tsdf_b = card.tsdf.cpu().double(), cpu.tsdf.double()
+    parts = ((card.weight.cpu() != cpu.weight)
+             | ((card.gray.cpu() - cpu.gray).abs() > MAPPING_GRAY_ATOL)
+             | ((tsdf_a - tsdf_b).abs() * truncation > MAPPING_TSDF_ATOL_M))
+    observed = int((cpu.weight > 0).sum())
+    return {"parted_voxels": int(parts.sum()), "observed_voxels": observed,
+            "max_abs_tsdf": float((tsdf_a - tsdf_b).abs().max()),
+            "ok": int(parts.sum()) <= MAPPING_TIE_SHARE * max(observed, 1)}
+
+
+def render_parts(card, cpu, splat: bool) -> dict:
+    """The share of pixels on which two renders (depth, gray) agree."""
+    (dc, gc), (dp, gp) = [tuple(t.cpu().numpy() for t in r) for r in (card, cpu)]
+    if splat:
+        agree = ((dc > 0) == (dp > 0)) & (gc == gp) & (np.abs(dc - dp) <= MAPPING_SPLAT_ATOL)
+        share = float(agree.mean())
+    else:
+        valid = (dc > 0) | (dp > 0)
+        share = float((np.abs(dc - dp)[valid] <= MAPPING_MARCH_ATOL).mean())
+    return {"agree_share": share, "valid_share": float((dc > 0).mean()),
+            "ok": share >= MAPPING_RENDER_SHARE}
+
+
+class _StepReads:
+    """Counts the host reads of one ``FrameToModelTracker.step`` (the
+    ``at``-th call) while installed."""
+
+    def __init__(self, at: int):
+        from dense_visual_odometry_torch.models import frame_to_model
+
+        self.cls, self.at, self.calls, self.reads = frame_to_model.FrameToModelTracker, at, 0, None
+        self.orig = self.cls.step
+
+    def __enter__(self):
+        probe, orig = self, self.orig
+
+        def step(tracker, image, depth):
+            probe.calls += 1
+            if probe.calls != probe.at or tracker.device.type != "cuda":
+                return orig(tracker, image, depth)
+            out = []
+            probe.reads = host_reads(lambda: out.append(orig(tracker, image, depth)))
+            return out[0]
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.orig
+
+
+def run_mapping(dev, root: Path, smi: str) -> dict:
+    """Phase 7 on ``dev``: the five MAPPING_RUNS of ``apps.reconstruct`` on
+    phase 5's directory, each held to MAPPING_BOUNDS; (a)'s and (b)'s fusion
+    repeated on the CPU from the same frames and poses; the splat and march
+    renders of (a)'s final volume and the brick march of (b)'s at frame 0's
+    pose on the card and on the CPU from one volume.  The launch counts are
+    zeroed just before and read just after each run; the level and fused
+    kernels must launch in (c)-(e).  Raises on any failed check."""
+    from dense_visual_odometry_torch.apps import reconstruct
+    from dense_visual_odometry_torch.io.datasets import load_tum_sequence
+    from dense_visual_odometry_torch.models import brick_tsdf, tsdf
+
+    cpu = torch.device("cpu")
+    seq_dir, cam_yaml = root / "seq", root / "camera.yaml"
+    gt_poses = load_tum_sequence(seq_dir, camera_yaml=cam_yaml).gt_poses
+    depth0 = true_depth0()
+    out_dir = root / "mapping"
+    out = {"phase": "mapping", "image": [HEIGHT, WIDTH], "frames": CLI_FRAMES,
+           "config": MAPPING_CONFIG, "runs": {}}
+    t_phase = time.perf_counter()
+    zero_launches()
+    recs = {}
+    for name in MAPPING_RUNS:
+        before, _ = read_launches()
+        t0 = time.perf_counter()
+        with _StepReads(MAPPING_READS_AT) as probe:
+            rec = reconstruct.run(reconstruct.parse_args(
+                reconstruct_argv(seq_dir, cam_yaml, out_dir, name, dev)))
+        wall = time.perf_counter() - t0
+        after, _ = read_launches()
+        s = rec.summary
+        row = {k: v for k, v in s.items() if k != "step_ms"}
+        row.update(wall_s=wall, launches={n: after[n] - before[n] for n in after},
+                   **mapping_errors(rec.poses, gt_poses, Path(s["output"]), rec.intrinsics,
+                                    depth0))
+        if name in TRACK_RUNS:
+            steps = np.asarray(s["step_ms"][2:])
+            row.update(median_step_ms=float(np.median(steps)),
+                       frames_per_s=float(len(steps) / (steps.sum() / 1e3)),
+                       host_reads_per_step=probe.reads, step_ms=s["step_ms"])
+        out["runs"][name], recs[name] = row, rec
+    out["launches"], _ = read_launches()
+
+    # The card against the CPU: (a)'s and (b)'s fusion from the same inputs.
+    for name, make, fuse in (("dense", tsdf.make_volume, tsdf.integrate),
+                             ("brick", brick_tsdf.make_brick_volume, brick_tsdf.integrate_brick)):
+        rec = recs[name]
+        vol = make(rec.volume_config, cpu)
+        t0 = time.perf_counter()
+        for (depth_m, gray), pose in zip(rec.frames, rec.fused_poses):
+            fuse(vol, depth_m, gray, rec.intrinsics, pose, rec.volume_config)
+        row = field_parts(rec.volume, vol, rec.volume_config.truncation)
+        row["cpu_fuse_s"] = time.perf_counter() - t0
+        if name == "brick":
+            row["tables_equal"] = all(bool(torch.equal(getattr(rec.volume, f).cpu(),
+                                                       getattr(vol, f)))
+                                      for f in ("table", "brick_zyx", "n_used", "n_dropped"))
+            row["ok"] = row["ok"] and row["tables_equal"]
+        frame = [torch.as_tensor(a, device=dev) for a in rec.frames[0]]
+        k_dev = torch.as_tensor(rec.intrinsics, device=dev)
+        pose_dev = torch.as_tensor(np.asarray(rec.fused_poses[0], np.float32), device=dev)
+        scratch = make(rec.volume_config, dev)
+        row["fuse_ms_per_frame_device"] = wall_ms(
+            lambda: fuse(scratch, *frame, k_dev, pose_dev, rec.volume_config), 5, dev)
+        out[f"fusion_{name}"] = row
+
+    # Renders of the final volumes at frame 0's pose, card and CPU.
+    eye = np.eye(4, dtype=np.float32)
+    renders = {
+        "splat": (recs["dense"], tsdf.raycast_view),
+        "march": (recs["dense"], tsdf.raycast_view_march),
+        "brick_march": (recs["brick"], brick_tsdf.raycast_view_march_brick),
+    }
+    for name, (rec, render) in renders.items():
+        args = (rec.intrinsics, eye, rec.volume_config, (HEIGHT, WIDTH))
+        card = render(rec.volume, *args)
+        host = render(type(rec.volume)(*(t.cpu() for t in rec.volume)), *args)
+        row = render_parts(card, host, splat=name == "splat")
+        row["ms"] = wall_ms(lambda: render(rec.volume, *args), 5, dev)  # noqa: B023
+        out[f"render_{name}"] = row
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    for name in ("dense", "brick"):
+        r, f = out["runs"][name], out[f"fusion_{name}"]
+        print(f"mapping fusion {name}: {r['fuse_ms_per_frame']} ms a frame from the host "
+              f"({f['fuse_ms_per_frame_device']} with the frame on the card), "
+              f"{r['fused_frames']} frames, volume {r['volume_dims']} {r['volume_bytes']} bytes "
+              f"[{smi}]", flush=True)
+        print(f"mapping mesh {name}: {r['mesh_s']} s, {r['vertices']} vertices, {r['faces']} faces "
+              f"[{smi}]", flush=True)
+    b = out["runs"]["brick"]
+    print(f"mapping bricks: {b['bricks_used']} used of {b['pool']}, {b['bricks_dropped']} dropped",
+          flush=True)
+    for name in renders:
+        print(f"mapping render {name}: {out[f'render_{name}']['ms']} ms at {HEIGHT}x{WIDTH} "
+              f"[{smi}]", flush=True)
+    for name in TRACK_RUNS:
+        r = out["runs"][name]
+        print(f"mapping {name}: {r['median_step_ms']} ms a step (median), {r['frames_per_s']} "
+              f"frames/s, {r['host_reads_per_step']} host reads in step {MAPPING_READS_AT}, "
+              f"{r.get('renders')} renders [{smi}]", flush=True)
+    for name in MAPPING_RUNS:
+        r = out["runs"][name]
+        print(f"mapping {name}: ATE {r['ate_mm']} mm, surface {r['surface_mm']} mm, "
+              f"launches {r['launches']}", flush=True)
+    print(f"mapping phase: {out['seconds']} s", flush=True)
+
+    backend = f"cuda:{torch.cuda.get_device_name(0)}" if dev.type == "cuda" else "cpu"
+    for name, r in out["runs"].items():
+        bounds = MAPPING_BOUNDS[name]
+        if r["backend"] != backend or r["frames"] != CLI_FRAMES or r["faces"] < 1000:
+            raise AssertionError(f"mapping {name}: ran on {r['backend']} over {r['frames']} "
+                                 f"frames, {r['faces']} faces")
+        if r["ate_mm"] > bounds["ate_mm"] or r["surface_mm"] > bounds["surface_mm"]:
+            raise AssertionError(f"mapping {name}: ATE or surface error above the expected bound")
+        if name in TRACK_RUNS and (r["failures"] or min(r["launches"]["level_solver"],
+                                                        r["launches"]["fused_iter"]) < 1):
+            raise AssertionError(f"mapping {name}: {r['failures']} failed solves, launches "
+                                 f"{r['launches']}")
+    for key in ("fusion_dense", "fusion_brick", *(f"render_{n}" for n in renders)):
+        if not out[key]["ok"]:
+            raise AssertionError(f"mapping {key}: the card and the CPU part: {out[key]}")
+    return out
+
+
 def zero_launches() -> None:
     """Every launch count of the port's kernels to 0."""
     lm_level.launches = 0
@@ -1553,12 +1872,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
               "needs a CUDA GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     smi = nvidia_smi_line()
     emit(phase_environment(smi))
     emit(phase_build())
     kernels = run(dev, smi)
+    print(f"smoke total: {time.perf_counter() - t_start} s", flush=True)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1764,6 +2085,7 @@ def run(dev: torch.device, smi: str) -> list:
     with tempfile.TemporaryDirectory(prefix="dvo_cli_") as tmp:
         cli = run_cli(Path(tmp))
         slam = run_slam(grays, depths, k_np, poses, dev, Path(tmp))
+        mapping = run_mapping(dev, Path(tmp), smi)
 
     # Per-kernel summary (level-0 cases; times from phase 3).
     def summary(name, source, replaces, check, fields):
@@ -1861,6 +2183,7 @@ def run(dev: torch.device, smi: str) -> list:
     for row in kernels:
         row["cli_launches"] = cli["launches"][row["name"]]
         row["slam_launches"] = slam["launches"][row["name"]]
+        row["mapping_launches"] = mapping["launches"][row["name"]]
     return kernels
 
 

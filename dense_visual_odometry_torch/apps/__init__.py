@@ -1,3 +1,4 @@
 """Command-line tools: ``benchmark`` (track a sequence, report ATE / RPE),
-``evaluate`` (score a trajectory file against another) and ``make_dataset``
-(render a synthetic TUM RGB-D directory)."""
+``evaluate`` (score a trajectory file against another), ``make_dataset``
+(render a synthetic TUM RGB-D directory) and ``reconstruct`` (fuse a tracked
+sequence into a TSDF volume and export a mesh)."""

@@ -4,6 +4,7 @@ tracking errors that ``chip_smoke.BOUNDS`` are set from.
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene [--band N] [CONFIG ...]
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --cli
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --slam
+    JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --mapping
 
 CONFIG is ``tpu_fast`` (the default) or a name of ``chip_smoke.VARIANTS``
 (``fast_prior``, ``fast_depth``, ...).  The scene is the smoke's own
@@ -39,6 +40,16 @@ packages' ``apps.benchmark -m slam`` (plain, ``--slam-two-step``,
 ``--dense-refine``) on the CLI directory, one line a run with ATE and RPE.
 The JAX package's Pallas kernels run in interpret mode at 640x480: about
 an hour and 6 GB.
+
+``--mapping``: the smoke's mapping phase (7) on the CPU instead
+(``chip_smoke.MAPPING_BOUNDS`` are set from it): the JAX package's
+``apps.reconstruct`` on the CLI directory for each of
+``chip_smoke.MAPPING_RUNS`` under ``configs/tpu_fast.json``, one JSON line a
+run with the ATE of its poses and the median |z - true depth| of its mesh's
+vertices in frame 0 (``chip_smoke.mapping_errors``).  The poses are the ones
+its ``_track_poses`` returns to its ``main``, read by wrapping that function
+for the run.  The Pallas kernels run in interpret mode at 640x480: about 5
+minutes.
 
 ``--cli``: the smoke's CLI phase on the CPU instead (``chip_smoke.CLI_BOUNDS``
 are set from it): the directory ``chip_smoke.cli_dataset`` writes, tracked by
@@ -229,8 +240,44 @@ def slam_runs() -> int:
     return 0
 
 
+def mapping_runs() -> int:
+    """The JAX package's reconstruct CLI on the smoke's CLI directory."""
+    import tempfile
+    from pathlib import Path
+
+    from dense_visual_odometry_torch.io.datasets import load_tum_sequence
+    from dense_visual_odometry_tpu.apps import reconstruct as jrec
+
+    with tempfile.TemporaryDirectory(prefix="dvo_map_") as tmp:
+        root = Path(tmp)
+        seq_dir, cam = cs.cli_dataset(root)
+        gt = load_tum_sequence(seq_dir, camera_yaml=cam).gt_poses
+        k = np.asarray(cs.synthetic.TUM_FR1_INTRINSICS, np.float64)
+        depth0 = cs.true_depth0()
+        for name in cs.MAPPING_RUNS:
+            argv = cs.reconstruct_argv(seq_dir, cam, root / "jax", name)
+            argv[0] = "tum-fr1"  # the JAX CLI's name for a TUM directory
+            track, poses = jrec._track_poses, []
+
+            def kept(*args, **kw):
+                poses.append(track(*args, **kw))  # noqa: B023
+                return poses[-1]  # noqa: B023
+
+            jrec._track_poses = kept
+            try:
+                jrec.main([*argv, "--platform", "cpu"])
+            finally:
+                jrec._track_poses = track
+            mesh = Path(argv[argv.index("-o") + 1])
+            print(json.dumps({"run": name, **cs.mapping_errors(poses[0], gt, mesh, k, depth0)}),
+                  flush=True)
+    return 0
+
+
 def main(argv) -> int:
     jax.config.update("jax_platforms", "cpu")
+    if argv[:1] == ["--mapping"]:
+        return mapping_runs()
     if argv[:1] == ["--cli"]:
         return cli_runs()
     if argv[:1] == ["--slam"]:
