@@ -112,13 +112,26 @@ Phases, each printing one JSON line:
    fused kernels must launch in (c)-(e); it prints fusion ms a frame, render
    ms at 640x480, the track-model steps' median ms, frames/s and host reads
    of a step, mesh extraction s, vertices and faces, bricks used and dropped
-   and volume bytes, each timing beside the card's name and power limit.
+   and volume bytes, each timing beside the card's name and power limit;
+8. the sparse pipeline, with its own launch counts (none of the port's
+   kernels is on it): (a) ``apps.benchmark -m sparse`` on phase 5's directory
+   with ``--sparse-matcher zncc`` and ``learned`` (the LoFTR-lite matcher,
+   the committed weights), ATE and RPE within ``SPARSE_CLI_BOUNDS``, every
+   step's success counted; (b) ``SparseVO`` of each matcher over the first
+   ``SPARSE_CROSS_FRAMES`` frames on the card and on the CPU from one seed:
+   equal success flags, poses within ``SPARSE_POSE_ATOL``, and the learned
+   matcher's coarse selections holding the same cells (ranks that part
+   counted and printed); (c) each stage's device time at 640x480 (Harris,
+   ZNCC each way, RANSAC, the refine; the backbone, each attention layer,
+   the dual softmax with its selection, both fine stages), and a card
+   session's median step, host reads and peak memory of a step.
 
 Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers (the
 level kernel's row with a ``variants`` entry for its depth, prior, row-block
 and tile variants; each kernel's with a ``strides`` entry for its
 runtime-stride variant at strides 3 and 4, its ``cli_launches``, its
-``slam_launches`` and its ``mapping_launches``), and last ``{"ok": true,
+``slam_launches``, its ``mapping_launches`` and its ``sparse_launches``),
+and last ``{"ok": true,
 "device": {...}}``.  A failed check raises and exits
 non-zero before that line; without a GPU the script exits non-zero at once.
 """
@@ -1849,6 +1862,292 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the sparse pipeline and the LoFTR-lite matcher.
+# ---------------------------------------------------------------------------
+
+SPARSE_MATCHERS = ("zncc", "learned")
+# (a) apps.benchmark -m sparse on phase 5's directory: three times the JAX
+# package's errors there on the CPU (``tests/jax_smoke_scene.py --sparse``;
+# the packages draw RANSAC's samples from different random streams).
+SPARSE_CLI_BOUNDS = {
+    "zncc": {"ate_mm": 57.23, "rpe_mm": 29.32, "rpe_deg": 1.172},  # JAX 19.076, 9.775, 0.3908
+    "learned": {"ate_mm": 127.8, "rpe_mm": 56.60, "rpe_deg": 2.134},  # JAX 42.616, 18.868, 0.7115
+}
+# (b) SparseVO over the first SPARSE_CROSS_FRAMES frames on the card and on
+# the CPU from one seed: equal success flags, poses within SPARSE_POSE_ATOL,
+# and with the learned matcher the same coarse selections.  The learned
+# sessions draw RANSAC's samples by source cell (``cell_sampler``): the two
+# devices' probabilities part by rounding, near-equal confidences may rank
+# apart, and a draw by rank would then fit other rows.
+SPARSE_CROSS_FRAMES = 4
+SPARSE_POSE_ATOL = 1e-4
+SPARSE_READS_AT = 10  # the step whose host reads and peak memory are counted
+
+
+class _SparseSteps:
+    """Records each ``SparseVO.step``'s success while installed (the step
+    has read it already)."""
+
+    def __init__(self):
+        from dense_visual_odometry_torch.models import sparse
+
+        self.cls, self.success = sparse.SparseVO, []
+        self.orig = self.cls.step
+
+    def __enter__(self):
+        probe, orig = self, self.orig
+
+        def step(vo, gray, depth):
+            pose = orig(vo, gray, depth)
+            if vo.last_result is not None and vo.steps > len(probe.success):
+                probe.success.append(bool(vo.last_result.success))
+            return pose
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.orig
+
+
+def record_coarse(vo) -> list:
+    """Wrap the learned session's ``match_coarse`` to keep each pair's
+    selection -> the list it appends to."""
+    kept, coarse = [], vo.model.match_coarse
+
+    def recording(g1, g2, **kw):
+        kept.append(coarse(g1, g2, **kw))
+        return kept[-1]
+
+    vo.model.match_coarse = recording
+    return kept
+
+
+def cell_sampler(kept: list, width: int, seed: int = SEED):
+    """A ``SparseVO`` sampler for the learned matcher that draws by source
+    cell: the Gumbel noise of pair ``step`` comes from a CPU generator seeded
+    with (seed, step), one value per hypothesis and cell, and a row takes its
+    cell's, so the draw does not depend on the rows' ranks."""
+    from dense_visual_odometry_torch.models.matcher import STRIDE
+    from dense_visual_odometry_torch.utils.ransac import first_top_k, sample_probabilities
+
+    wc = width // STRIDE
+
+    def sampler(step, mask, hypotheses, size):
+        uv = kept[-1].uv_prev
+        cells = (torch.div(uv[:, 1], STRIDE, rounding_mode="floor") * wc
+                 + torch.div(uv[:, 0], STRIDE, rounding_mode="floor")).long()
+        gen = torch.Generator().manual_seed(seed * 100003 + step)
+        noise = torch.empty((hypotheses, (HEIGHT // STRIDE) * wc)).exponential_(generator=gen)
+        gumbel = (-torch.log(noise)).to(mask.device)[:, cells]
+        probs = sample_probabilities(mask, mask.shape[0], mask.device)
+        return first_top_k(gumbel + torch.log(probs), size)
+
+    return sampler
+
+
+def selection_parts(card, cpu) -> dict:
+    """How the card's coarse selection of a pair parts from the CPU's: the
+    source cells only one of them selected, and the ranks that hold another
+    match (near-equal confidences ranked apart)."""
+    from dense_visual_odometry_torch.models.matcher import selection_order
+
+    a = {tuple(uv) for uv in card.uv_prev.cpu().tolist()}
+    b = {tuple(uv) for uv in cpu.uv_prev.cpu().tolist()}
+    out = {"parted_cells": len(a ^ b), "swapped_ranks": None}
+    if not out["parted_cells"]:
+        order = selection_order(cpu, card)
+        out["swapped_ranks"] = int((order != torch.arange(len(order))).sum())
+        out["max_abs_confidence"] = float(
+            (card.confidence.cpu()[order] - cpu.confidence).abs().max())
+    return out
+
+
+def sparse_cross(frames, cam, dev) -> dict:
+    """(b): SparseVO of each matcher over the first SPARSE_CROSS_FRAMES
+    frames on ``dev`` and on the CPU, step by step from one seed."""
+    from dense_visual_odometry_torch.models.sparse import SparseVO
+
+    out = {}
+    for matcher in SPARSE_MATCHERS:
+        sess = {side: SparseVO(cam, seed=SEED, matcher=matcher, device=d)
+                for side, d in (("card", dev), ("cpu", torch.device("cpu")))}
+        kept = {}
+        if matcher == "learned":
+            for side, vo in sess.items():
+                kept[side] = record_coarse(vo)
+                vo.sampler = cell_sampler(kept[side], WIDTH)
+        row = {"success": {"card": [], "cpu": []}, "max_abs_pose_diff": 0.0, "cpu_step_s": []}
+        for gray, depth in frames[:SPARSE_CROSS_FRAMES]:
+            poses = {}
+            for side, vo in sess.items():
+                t0 = time.perf_counter()
+                poses[side] = vo.step(gray, depth).cpu()
+                if vo.last_result is not None:
+                    row["success"][side].append(bool(vo.last_result.success))
+                    if side == "cpu":
+                        row["cpu_step_s"].append(time.perf_counter() - t0)
+            row["max_abs_pose_diff"] = max(row["max_abs_pose_diff"],
+                                           float((poses["card"] - poses["cpu"]).abs().max()))
+        if matcher == "learned":
+            row["selections"] = [selection_parts(a, b)
+                                 for a, b in zip(kept["card"], kept["cpu"])]
+        out[matcher] = row
+    return out
+
+
+def sparse_stage_times(frames, cam, dev) -> dict:
+    """(c): each stage of a pair at 640x480 on frames 0 and 1, device ms
+    (``time_ms``: CUDA events after an L2 flush)."""
+    from dense_visual_odometry_torch.models import matcher as matcher_mod
+    from dense_visual_odometry_torch.models import sparse
+    from dense_visual_odometry_torch.ops.pyramid import preprocess_depth
+    from dense_visual_odometry_torch.utils.ransac import ransac_rigid
+
+    reps = 10
+    k = cam.intrinsics.to(dev)
+    (g0, d0), (g1, d1) = [
+        (torch.as_tensor(g, dtype=torch.float32, device=dev),
+         preprocess_depth(torch.as_tensor(d.astype(np.int64), device=dev), cam.depth_scale))
+        for g, d in frames[:2]]
+    t = {}
+    corners, scores = sparse.harris_corners(g0, k=1024)
+    t["harris"] = time_ms(lambda: sparse.harris_corners(g0, k=1024), reps, dev)
+    fwd = sparse.match_patches(g0, g1, corners)
+    t["zncc_forward"] = time_ms(lambda: sparse.match_patches(g0, g1, corners), reps, dev)
+    t["zncc_backward"] = time_ms(lambda: sparse.match_patches(g1, g0, fwd.uv_curr), reps, dev)
+    src, dst, valid, pts_prev = sparse.ransac_inputs(fwd, d0, d1, k, 0.03)
+    gen = torch.Generator().manual_seed(SEED)
+    res = ransac_rigid(src, dst, generator=gen, num_hypotheses=64, sample_mask=valid,
+                       weights=fwd.confidence * valid)
+    t["ransac"] = time_ms(lambda: ransac_rigid(
+        src, dst, generator=gen, num_hypotheses=64, sample_mask=valid,
+        weights=fwd.confidence * valid), reps, dev)
+    w = fwd.confidence * (valid & res.inliers)
+    t["refine"] = time_ms(lambda: sparse.refine_reprojection(
+        res.fit.transform, pts_prev, fwd.uv_curr, w, k), reps, dev)
+
+    model = matcher_mod.load_matcher(device=dev)
+    with torch.no_grad():
+        f1, f2 = model._backbone(g0), model._backbone(g1)
+        t["backbone"] = time_ms(lambda: model._backbone(g0), reps, dev)
+        for layer in range(model.layers):
+            t[f"attention_layer{layer}"] = time_ms(
+                lambda: model.transformer_layer(layer, f1, f2), reps, dev)  # noqa: B023
+            f1, f2 = model.transformer_layer(layer, f1, f2)
+        hc, wc = HEIGHT // matcher_mod.STRIDE, WIDTH // matcher_mod.STRIDE
+        t["dual_softmax_select"] = time_ms(
+            lambda: model.select(model.dual_softmax(f1, f2), hc, wc), reps, dev)
+        coarse = model.select(model.dual_softmax(f1, f2), hc, wc)
+        t["fine_zncc"] = time_ms(lambda: sparse.match_patches(
+            g0, g1, coarse.uv_prev, centers_curr=coarse.uv_curr, search=6, min_zncc=0.5),
+            reps, dev)
+        t["fine_learned"] = time_ms(lambda: model.refine_matches_fine(g0, g1, coarse), reps, dev)
+    return t
+
+
+def sparse_session_costs(frames, cam, dev) -> dict:
+    """(c): a card session of each matcher over every frame: the median
+    host-to-host step, the host reads and the peak memory of step
+    SPARSE_READS_AT (above what was allocated before it)."""
+    from dense_visual_odometry_torch.models.sparse import SparseVO
+
+    out = {}
+    for matcher in SPARSE_MATCHERS:
+        vo = SparseVO(cam, seed=SEED, matcher=matcher, device=dev)
+        steps = []
+        for n, (gray, depth) in enumerate(frames):
+            if n == SPARSE_READS_AT:
+                torch.cuda.synchronize(dev)
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                reads = host_reads(lambda: vo.step(gray, depth))  # noqa: B023
+                torch.cuda.synchronize(dev)
+                peak = torch.cuda.max_memory_allocated(dev) - base
+                continue
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            vo.step(gray, depth)
+            steps.append((time.perf_counter() - t0) * 1e3)
+        out[matcher] = {"median_step_ms": float(np.median(steps[2:])),
+                        "host_reads_per_step": reads, "peak_bytes_per_step": int(peak),
+                        "step_ms": steps}
+    return out
+
+
+def run_sparse(dev, root: Path, smi: str) -> dict:
+    """Phase 8 on ``dev``: (a) ``apps.benchmark -m sparse`` with each matcher
+    on phase 5's directory (ATE and RPE within SPARSE_CLI_BOUNDS), (b) the
+    card against the CPU, (c) the stages' device times, the step's median,
+    host reads and peak memory.  The launch counts are zeroed just before
+    and read just after (a).  Raises on any failed check."""
+    from dense_visual_odometry_torch.apps import benchmark
+    from dense_visual_odometry_torch.io.datasets import host_gray_u8, load_tum_sequence
+
+    seq_dir, cam_yaml = root / "seq", root / "camera.yaml"
+    out = {"phase": "sparse", "image": [HEIGHT, WIDTH], "frames": CLI_FRAMES, "cli": {}}
+    t_phase = time.perf_counter()
+    zero_launches()
+    for matcher in SPARSE_MATCHERS:
+        run_dir = root / f"sparse_{matcher}"
+        with _SparseSteps() as probe:
+            summary = benchmark.run(benchmark.parse_args(
+                ["tum", "-d", str(seq_dir), "--camera", str(cam_yaml), "-m", "sparse",
+                 "--sparse-matcher", matcher, "-o", str(run_dir)]))
+        out["cli"][matcher] = {
+            **summary, "successful_steps": sum(probe.success), "steps": len(probe.success),
+            "written": sorted(p.name for p in run_dir.iterdir())}
+    out["launches"], _ = read_launches()
+
+    seq = load_tum_sequence(seq_dir, camera_yaml=cam_yaml)
+    frames = [(host_gray_u8(rgb).astype(np.float32), depth) for rgb, depth in seq]
+    out["cross"] = sparse_cross(frames, seq.camera, dev)
+    out["stage_ms"] = sparse_stage_times(frames, seq.camera, dev)
+    out["session"] = sparse_session_costs(frames, seq.camera, dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    for matcher in SPARSE_MATCHERS:
+        r, s = out["cli"][matcher], out["session"][matcher]
+        print(f"sparse {matcher}: fps {r['fps']}, total {r['total_time_s']} s, read "
+              f"{r['read_s']} s, {r['successful_steps']} of {r['steps']} steps succeed, ATE "
+              f"{r['ate_rmse_m'] * 1e3} mm, RPE {r['rpe_trans_rmse_m'] * 1e3} mm "
+              f"{np.degrees(r['rpe_rot_rmse_rad'])} deg [{smi}]", flush=True)
+        print(f"sparse {matcher} session: median step {s['median_step_ms']} ms, "
+              f"{s['host_reads_per_step']} host reads and {s['peak_bytes_per_step']} peak bytes "
+              f"in step {SPARSE_READS_AT} [{smi}]", flush=True)
+        c = out["cross"][matcher]
+        print(f"sparse {matcher} card vs CPU: success {c['success']}, max |pose diff| "
+              f"{c['max_abs_pose_diff']}, selections {c.get('selections')}", flush=True)
+    print(f"sparse stage ms at {HEIGHT}x{WIDTH}: {json.dumps(out['stage_ms'])} [{smi}]",
+          flush=True)
+    print(f"sparse launches of the port's kernels: {out['launches']}", flush=True)
+    print(f"sparse phase: {out['seconds']} s", flush=True)
+
+    backend = f"cuda:{torch.cuda.get_device_name(0)}" if dev.type == "cuda" else "cpu"
+    for matcher in SPARSE_MATCHERS:
+        r, bounds = out["cli"][matcher], SPARSE_CLI_BOUNDS[matcher]
+        if r["backend"] != backend or r["frames"] != CLI_FRAMES or r["steps"] != CLI_FRAMES - 1:
+            raise AssertionError(f"sparse {matcher}: ran on {r['backend']} over {r['frames']} "
+                                 f"frames, {r['steps']} steps")
+        if r["written"] != ["report.json", "trajectory.txt"]:
+            raise AssertionError(f"sparse {matcher}: wrote {r['written']}")
+        if (r["ate_rmse_m"] * 1e3 > bounds["ate_mm"]
+                or r["rpe_trans_rmse_m"] * 1e3 > bounds["rpe_mm"]
+                or np.degrees(r["rpe_rot_rmse_rad"]) > bounds["rpe_deg"]):
+            raise AssertionError(f"sparse {matcher}: ATE / RPE above the expected bound")
+        c = out["cross"][matcher]
+        if c["success"]["card"] != c["success"]["cpu"]:
+            raise AssertionError(f"sparse {matcher}: success flags part: {c['success']}")
+        if c["max_abs_pose_diff"] > SPARSE_POSE_ATOL:
+            raise AssertionError(f"sparse {matcher}: card and CPU poses part by "
+                                 f"{c['max_abs_pose_diff']}")
+        if any(s["parted_cells"] for s in c.get("selections", [])):
+            raise AssertionError(f"sparse {matcher}: coarse selections part: {c['selections']}")
+    return out
+
+
 def zero_launches() -> None:
     """Every launch count of the port's kernels to 0."""
     lm_level.launches = 0
@@ -2086,6 +2385,7 @@ def run(dev: torch.device, smi: str) -> list:
         cli = run_cli(Path(tmp))
         slam = run_slam(grays, depths, k_np, poses, dev, Path(tmp))
         mapping = run_mapping(dev, Path(tmp), smi)
+        sparse = run_sparse(dev, Path(tmp), smi)
 
     # Per-kernel summary (level-0 cases; times from phase 3).
     def summary(name, source, replaces, check, fields):
@@ -2184,6 +2484,7 @@ def run(dev: torch.device, smi: str) -> list:
         row["cli_launches"] = cli["launches"][row["name"]]
         row["slam_launches"] = slam["launches"][row["name"]]
         row["mapping_launches"] = mapping["launches"][row["name"]]
+        row["sparse_launches"] = sparse["launches"][row["name"]]
     return kernels
 
 

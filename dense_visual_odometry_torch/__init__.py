@@ -7,9 +7,12 @@ every shipped configuration (``configs/*.json``): ``models.robust.track_pair``,
 and the multi-stream ``models.batched_session.BatchedOdometrySession``, and
 the SLAM back end on one device: keyframe SLAM (``models.slam.SlamSession``,
 ``models.batched_slam.BatchedSlamSession``), the windowed pose graph
-(``models.posegraph``) and dense bundle adjustment (``models.dense_ba``).
-The three kernels of the tracker live in ``ops/cuda``; each has a plain
-PyTorch version that the CPU runs.
+(``models.posegraph``) and dense bundle adjustment (``models.dense_ba``),
+mapping (``models.tsdf``, ``models.brick_tsdf``, ``models.frame_to_model``),
+and sparse odometry (``models.sparse.SparseVO`` with Harris + ZNCC or the
+LoFTR-lite matcher of ``models.matcher``).  The three kernels of the
+tracker live in ``ops/cuda``; each has a plain PyTorch version that the CPU
+runs.
 
 Geometry stays in full float32: TF32 is switched off for matrix products
 and convolutions, as the JAX package forces highest matmul precision.

@@ -21,7 +21,11 @@ runs at.  ``-m slam`` runs keyframe SLAM (``models/slam.py``; with
 ``--slam-two-step`` and ``--slam-refine-caps`` the two-step front end, with
 ``--dense-refine`` a global pose graph and dense BA after the run) and
 reports the BA-optimized trajectory and the keyframe count; ``-m sparse``
-is not ported yet and raises.
+runs the sparse pipeline (``models/sparse.py``: Harris + ZNCC, or with
+``--sparse-matcher learned`` the LoFTR-lite matcher of ``models/matcher.py``
+with the weights committed in ``dense_visual_odometry_tpu/weights/``, read
+by path) on the frames' gray, converted on the host as ``cv2.cvtColor``
+does.
 """
 
 from __future__ import annotations
@@ -36,10 +40,6 @@ from typing import Iterable, Iterator
 
 logger = logging.getLogger("dvo.benchmark")
 
-UNPORTED_METHODS = {
-    "sparse": "the sparse pipeline (ROADMAP.md, Queue 1 item 5)",
-}
-
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Dense visual odometry benchmark")
@@ -52,7 +52,7 @@ def parse_args(argv=None):
     parser.add_argument("-m", "--method", type=str, default="robust-dvo",
                         choices=["robust-dvo", "slam", "sparse"],
                         help="tracking pipeline (robust-dvo, the frame-to-frame solver; "
-                        "slam, keyframe SLAM; sparse is not ported yet)")
+                        "slam, keyframe SLAM; sparse, matched features and a rigid fit)")
     parser.add_argument("--platform", type=str, default=None, choices=["cuda", "cpu"],
                         help="device to run on (default: the GPU; cpu runs the kernels' "
                         "plain versions)")
@@ -71,6 +71,10 @@ def parse_args(argv=None):
                         help="SLAM only: after the run, a global pose graph and dense "
                         "photometric BA over the retained keyframes (joint pose + inverse "
                         "depth), the refined depths fed back into the keyframes")
+    parser.add_argument("--sparse-matcher", type=str, default="zncc",
+                        choices=["zncc", "learned"],
+                        help="matcher for -m sparse: Harris corners + ZNCC, or the "
+                        "LoFTR-lite learned coarse matcher (the committed weights)")
     parser.add_argument("--host-gray", action="store_true",
                         help="convert RGB to uint8 gray on the host before upload "
                         "(the reference's uint8-gray semantics; a smaller upload)")
@@ -83,10 +87,13 @@ def parse_args(argv=None):
 
 def _make_stepper(method: str, seq, cfg, device, host_gray: bool = False,
                   dense_refine: bool = False, slam_two_step: bool = False,
-                  slam_refine_caps=None):
+                  slam_refine_caps=None, sparse_matcher: str = "zncc"):
     """-> (step(rgb, depth) -> (4, 4) pose tensor, finalize() -> dict of
     summary entries) of the method: an ``OdometrySession`` for robust-dvo
-    (its pose stays on the device), a ``SlamSession`` for slam."""
+    (its pose stays on the device), a ``SlamSession`` for slam, a
+    ``SparseVO`` for sparse."""
+    from dense_visual_odometry_torch.io.datasets import host_gray_u8
+
     if method == "slam":
         from dense_visual_odometry_torch.models.slam import KeyframePolicy, SlamSession
 
@@ -115,7 +122,16 @@ def _make_stepper(method: str, seq, cfg, device, host_gray: bool = False,
 
         return step, finalize
 
-    from dense_visual_odometry_torch.io.datasets import host_gray_u8
+    if method == "sparse":
+        from dense_visual_odometry_torch.models.sparse import SparseVO
+
+        vo = SparseVO(seq.camera, matcher=sparse_matcher, device=device)
+
+        def step(rgb, depth):
+            return vo.step(host_gray_u8(rgb).astype("float32"), depth)
+
+        return step, dict
+
     from dense_visual_odometry_torch.models.session import OdometrySession
 
     session = OdometrySession(seq.camera, cfg, device=device)
@@ -165,9 +181,6 @@ def run(args) -> dict:
     from dense_visual_odometry_torch.io.datasets import frame_route
     from dense_visual_odometry_torch.models.robust import resolve_device
 
-    if args.method in UNPORTED_METHODS:
-        raise NotImplementedError(
-            f"-m {args.method} needs {UNPORTED_METHODS[args.method]}, not ported yet")
     device = resolve_device(args.platform)
     if args.benchmark == "test":
         seq = load_bundled_sequence(args.data_dir, size=args.size)
@@ -190,6 +203,7 @@ def run(args) -> dict:
         dense_refine=bool(getattr(args, "dense_refine", False)),
         slam_two_step=bool(getattr(args, "slam_two_step", False)),
         slam_refine_caps=getattr(args, "slam_refine_caps", None),
+        sparse_matcher=getattr(args, "sparse_matcher", "zncc"),
     )
     profiler = None
     if args.profile_dir:

@@ -1,6 +1,8 @@
 """Tracking models: the robust frame-to-frame solver, the odometry sessions,
-the SLAM back end (keyframe SLAM, the pose graph, dense BA) and mapping (dense
-and brick TSDF volumes, raycasts, mesh export, frame-to-model tracking)."""
+the SLAM back end (keyframe SLAM, the pose graph, dense BA), mapping (dense
+and brick TSDF volumes, raycasts, mesh export, frame-to-model tracking) and
+sparse odometry (``models.sparse``, ``models.matcher``: imported from their
+modules, as in the JAX package)."""
 
 from dense_visual_odometry_torch.models.batched_slam import BatchedSlamSession  # noqa: F401
 from dense_visual_odometry_torch.models.brick_tsdf import (  # noqa: F401

@@ -69,7 +69,7 @@ def from_rt(rot: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(batch + (4, 4), dtype=rot.dtype, device=rot.device)
     out[..., :3, :3] = rot
     out[..., :3, 3] = t
-    out[..., 3, 3] = 1.0
+    out[..., 3, 3].fill_(1.0)  # fill_: assigning a number to a 0-dim CUDA view syncs
     return out
 
 

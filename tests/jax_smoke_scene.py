@@ -5,6 +5,7 @@ tracking errors that ``chip_smoke.BOUNDS`` are set from.
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --cli
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --slam
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --mapping
+    JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --sparse
 
 CONFIG is ``tpu_fast`` (the default) or a name of ``chip_smoke.VARIANTS``
 (``fast_prior``, ``fast_depth``, ...).  The scene is the smoke's own
@@ -50,6 +51,14 @@ vertices in frame 0 (``chip_smoke.mapping_errors``).  The poses are the ones
 its ``_track_poses`` returns to its ``main``, read by wrapping that function
 for the run.  The Pallas kernels run in interpret mode at 640x480: about 5
 minutes.
+
+``--sparse``: the smoke's sparse phase (8) on the CPU instead
+(``chip_smoke.SPARSE_CLI_BOUNDS`` are set from it): both packages'
+``apps.benchmark -m sparse`` on the CLI directory with each of
+``chip_smoke.SPARSE_MATCHERS``, one JSON line a matcher with both
+summaries' ATE and RPE (the packages draw RANSAC's samples from different
+random streams, so their trajectories part by more than rounding).  About
+5 minutes, most of it the learned matcher's attention at 640x480.
 
 ``--cli``: the smoke's CLI phase on the CPU instead (``chip_smoke.CLI_BOUNDS``
 are set from it): the directory ``chip_smoke.cli_dataset`` writes, tracked by
@@ -274,8 +283,37 @@ def mapping_runs() -> int:
     return 0
 
 
+def sparse_runs() -> int:
+    """Both packages' ``-m sparse`` CLI on the smoke's CLI directory."""
+    import tempfile
+    from pathlib import Path
+    from types import SimpleNamespace
+
+    from dense_visual_odometry_torch.apps import benchmark as tbench
+    from dense_visual_odometry_tpu.apps import benchmark as jbench
+
+    keys = ("ate_rmse_m", "rpe_trans_rmse_m", "rpe_rot_rmse_rad", "frames", "median_frame_ms")
+    with tempfile.TemporaryDirectory(prefix="dvo_sparse_") as tmp:
+        root = Path(tmp)
+        seq_dir, cam = cs.cli_dataset(root)
+        for matcher in cs.SPARSE_MATCHERS:
+            row = {"matcher": matcher}
+            for side, bench in (("jax", jbench), ("port", tbench)):
+                args = SimpleNamespace(
+                    benchmark="tum", data_dir=str(seq_dir), camera=str(cam), config=None,
+                    size=None, method="sparse", sparse_matcher=matcher, platform="cpu",
+                    output_dir=str(root / f"{side}_{matcher}"), profile_dir=None,
+                    pipeline=False, host_gray=False, pyr_down=False, verbose=False)
+                summary = bench.run(args)
+                row[side] = {k: summary[k] for k in keys}
+            print(json.dumps(row), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     jax.config.update("jax_platforms", "cpu")
+    if argv[:1] == ["--sparse"]:
+        return sparse_runs()
     if argv[:1] == ["--mapping"]:
         return mapping_runs()
     if argv[:1] == ["--cli"]:

@@ -18,7 +18,9 @@ Then ``apps.evaluate`` prints the JAX package's JSON on the same files
 (counts equal, errors within 1e-9: both read each pose's quaternion into a
 float32 matrix, and XLA:CPU's fused multiply-adds round some entries one
 float32 step apart from PyTorch's);
-``-m sparse`` raises naming its ROADMAP item; ``-m slam`` runs under
+``-m sparse`` (``--sparse-matcher zncc`` and ``learned``) matches the JAX
+package's CLI, the port's session replaying the JAX session's RANSAC samples
+(``test_torch_sparse.replay_session``); ``-m slam`` runs under
 ``tpu_slam`` (plain, ``--slam-two-step``, with ``--slam-refine-caps`` and
 with ``--dense-refine``) and reports the SLAM session's optimized
 trajectory and its keyframes, and plain and with ``--dense-refine`` it
@@ -137,10 +139,52 @@ def test_evaluate_matches_jax(runs, dataset, capsys):
     assert t["pairs"] >= N_FRAMES - 1
 
 
-@pytest.mark.parametrize("method, item", [("sparse", "item 5")])
-def test_unported_methods_raise(method, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1 {item}"):
-        tbench.run(args(method=method, data_dir="missing"))
+@pytest.fixture(scope="module")
+def sparse_runs(dataset, tmp_path_factory):
+    """``-m sparse`` with each matcher through both packages' CLI ->
+    {matcher: {side: (summary, directory)}}; the port's ``SparseVO`` draws
+    the JAX session's samples."""
+    from dense_visual_odometry_torch.models import sparse as tsparse
+    from tests.test_torch_sparse import replay_session
+
+    seq, cam, _ = dataset
+    out = tmp_path_factory.mktemp("sparse")
+    runs = {}
+    for matcher in ("zncc", "learned"):
+        kw = dict(data_dir=str(seq), camera=str(cam), method="sparse", sparse_matcher=matcher)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tsparse, "SparseVO", lambda camera, matcher, device: replay_session(
+                camera, matcher, 0, device=device))
+            runs[matcher] = {"port": (tbench.run(args(**kw, output_dir=str(out / f"t_{matcher}"))),
+                                      out / f"t_{matcher}")}
+        runs[matcher]["jax"] = (jbench.run(args(**kw, output_dir=str(out / f"j_{matcher}"))),
+                                out / f"j_{matcher}")
+    return runs
+
+
+@pytest.mark.parametrize("matcher", ["zncc", "learned"])
+def test_sparse_cli_matches_jax(sparse_runs, matcher):
+    """The port's ``-m sparse`` against the JAX package's on the CPU: poses
+    within 1e-5, ATE and RPE within 1e-6, the same summary and report keys
+    (the port's summary adds ``read_s``), the trajectory file to its printed
+    precision."""
+    (t, t_dir), (j, j_dir) = (sparse_runs[matcher][side] for side in ("port", "jax"))
+    assert t.keys() == j.keys() | {"read_s"}
+    assert t["method"] == "sparse" and t["backend"] == "cpu" and t["frames"] == N_FRAMES
+    for key in ("ate_rmse_m", "rpe_trans_rmse_m", "rpe_rot_rmse_rad", "mean_trans_err_m",
+                "mean_rot_err_rad"):
+        assert abs(t[key] - j[key]) <= 1e-6, key
+    assert t["ate_rmse_m"] < 0.02
+    t_rep = json.loads((t_dir / "report.json").read_text())
+    j_rep = json.loads((j_dir / "report.json").read_text())
+    assert t_rep.keys() == j_rep.keys()
+    assert t_rep["summary"].keys() == j_rep["summary"].keys() | {"read_s"}
+    for key in ("estimated_poses", "transformations"):
+        np.testing.assert_allclose(t_rep[key], j_rep[key], atol=1e-5)
+    t_traj = np.loadtxt(t_dir / "trajectory.txt")
+    j_traj = np.loadtxt(j_dir / "trajectory.txt")
+    np.testing.assert_array_equal(t_traj[:, 0], j_traj[:, 0])
+    np.testing.assert_allclose(t_traj[:, 1:], j_traj[:, 1:], atol=1.1e-5)
 
 
 SLAM_FLAGS = {"slam": {}, "slam_two_step": {"slam_two_step": True},

@@ -78,6 +78,7 @@ def _no_gpu():
 
 def test_entry_points_default_to_the_gpu():
     _no_gpu()
+    from dense_visual_odometry_torch.apps import benchmark
     from dense_visual_odometry_torch.camera import CameraModel
     from dense_visual_odometry_torch.config import RobustDVOConfig
     from dense_visual_odometry_torch.models.batched_session import (
@@ -86,6 +87,7 @@ def test_entry_points_default_to_the_gpu():
     )
     from dense_visual_odometry_torch.models.robust import preprocess_frame
     from dense_visual_odometry_torch.models.session import OdometrySession, init_state
+    from dense_visual_odometry_torch.models.sparse import SparseVO
 
     cam = CameraModel.create(np.eye(3), 1.0)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -99,8 +101,14 @@ def test_entry_points_default_to_the_gpu():
         BatchedOdometrySession(cam)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_batched_state(2, 8, 8, 2)
+    for matcher in ("zncc", "learned"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SparseVO(cam, matcher=matcher)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        benchmark.main(["tum", "-d", "missing", "-m", "sparse"])
     # Asked for explicitly, the CPU runs the plain versions.
     OdometrySession(cam, device="cpu")
+    SparseVO(cam, matcher="learned", device="cpu")
 
 
 def _run_chip_smoke(cwd: Path):

@@ -24,6 +24,21 @@ measured gaps).  This file pins the cause on the seeded 120x160 scene of
   (solve, exp, the 4x4 product), and the JAX package's solve inside its
   jitted loop does not round as the same solve does jitted alone, so its
   loop's bits cannot be fed from outside it.
+- The JAX package's own Gauss-Newton loop body, replicated as one jitted
+  ``lax.while_loop`` over this file's JAX evaluation that returns each
+  iteration's evaluation, delta and pose (:func:`jax_loop_replica`,
+  ``test_jax_loop_replica``): every in-loop evaluation and delta equals the
+  same function jitted alone bit for bit, yet the replica stops after 18
+  iterations at level 0 and 13 at level 1 (``REPLICA_ITERS``) where the
+  package's ``_solve_level`` stops after 17 and 15, and the package's level
+  solve capped at one iteration already parts from the replica's first pose
+  (measured 1.0e-9 at level 0, 1.2e-8 at level 1; up to 1.1e-7 in later
+  iterations).  The port's step from the replica's H and b parts from the
+  replica's by as much (its delta by 7.0e-9 and 1.7e-8: LAPACK's LU on the
+  CPU against XLA's).  So the count at this quantum is decided by XLA's
+  rounding inside the package's fused level program, which no composition
+  of its functions outside it reproduces: the gap is known and explained
+  (ROADMAP Queue 3), not a fault of the port's arithmetic.
 
 Cases (measured here: the port's own evaluation stops after 28 and 12
 iterations at levels 3 and 1):
@@ -42,6 +57,7 @@ The JAX evaluation is composed of the JAX package's public functions, as
 its ``_solve_level`` composes them for these modes.
 """
 
+import dataclasses
 from functools import partial
 
 import jax
@@ -51,12 +67,14 @@ import pytest
 import torch
 
 from dense_visual_odometry_torch.models import robust as trobust
+from dense_visual_odometry_torch.utils.lie import se3 as tse3
 from dense_visual_odometry_tpu.camera import CameraModel as JCamera
 from dense_visual_odometry_tpu.models import robust as jrobust
 from dense_visual_odometry_tpu.models.weighting import t_distribution_weights_with_scale
 from dense_visual_odometry_tpu.ops import gradients as jgrad
 from dense_visual_odometry_tpu.ops import interp as jinterp
 from dense_visual_odometry_tpu.ops import residuals as jres
+from dense_visual_odometry_tpu.utils.lie import se3 as jse3
 from tests.test_torch_track import _batch, scene, tier_configs  # noqa: F401
 
 CASES = {"lm_packed": ("tpu_accurate", "easy", 3), "gn_plain": ("reference_default", "easy", 1),
@@ -68,7 +86,14 @@ MAX_ERROR_ULPS = {"lm_packed": 64, "gn_plain": 64, "gn_plain_level0": 128}
 # iterations after the JAX package's level solve (18 against 17).
 EVAL_GAPS = {"gn_plain_level0": 1}
 # Fed its evaluations and its deltas: (the port's count, the JAX package's).
-DELTA_FED_ITERS = {"gn_plain": (14, 15), "gn_plain_level0": (18, 17)}  # measured at most 4 (lm_packed) and 49 (gn_plain, 2,815 pixels)
+DELTA_FED_ITERS = {"gn_plain": (14, 15), "gn_plain_level0": (18, 17)}
+# The replica of the JAX package's loop, jitted as one while_loop, stops after
+# these counts (the package's level solve: 15 and 17).
+REPLICA_ITERS = {"gn_plain": 13, "gn_plain_level0": 18}
+# How far the package's level solve capped at one iteration, and the port's
+# first step on the replica's H and b, part from the replica (measured at
+# most 1.2e-8 and 1.7e-8).
+FIRST_STEP_ATOL = 1e-7
 
 
 def level_arrays(scene, batch, level):  # noqa: F811
@@ -238,3 +263,95 @@ def test_gn_loop_on_jax_deltas(scene, case):  # noqa: F811
         est, its = run_loop(c, jax_evaluate_kept)
     assert (its, c["j_its"]) == DELTA_FED_ITERS[case]
     np.testing.assert_allclose(est, c["j_est"], atol=1e-6)
+
+
+def jax_loop_replica(c):
+    """The JAX package's Gauss-Newton loop body (``robust.py`` ``_solve_level``,
+    no relative tolerance, no prior) over case setup ``c``'s JAX evaluation,
+    jitted as one ``lax.while_loop`` that records each iteration's
+    evaluation (H, b, err), delta and pose -> run(start, lambda0)."""
+    jcfg, b = c["jcfg"], c["b"]
+    maxit = jcfg.max_iterations_for_level(c["level"])
+    evaluate = c["j_evaluate"]
+    eye6 = jnp.eye(6, dtype=jnp.float32)
+
+    def solve(hess, rhs):
+        damp = 1e-8 * (1.0 + jnp.trace(hess, axis1=-2, axis2=-1))
+        return jnp.linalg.solve(hess + damp[..., None, None] * eye6, rhs[..., None])[..., 0]
+
+    def cond(cc):
+        return jnp.logical_and(jnp.any(~cc["done"]), cc["it"] < maxit)
+
+    def body(cc):
+        hess, rhs, err, count, _, lam = evaluate(cc["est"], cc["wl"])
+        delta = solve(hess, rhs)
+        ok = jnp.all(jnp.isfinite(delta), axis=-1) & (count >= 6.0)
+        delta = jnp.where(ok[..., None], delta, 0.0)
+        err_diff = err - cc["err_prev"]
+        converged = jnp.abs(err_diff) < jcfg.tolerance
+        decreased = err_diff < 0.0
+        active = ~cc["done"]
+        accept = decreased & ~converged & ok & active
+        est = jnp.where(accept[..., None, None], jse3.exp(delta) @ cc["est"], cc["est"])
+        inc = jnp.where(converged | ~active, cc["inc"],
+                        jnp.where(decreased, 0, cc["inc"] + 1))
+        i = cc["it"]
+        rec = {k: cc[k].at[i].set(v) for k, v in
+               (("H", hess), ("b", rhs), ("err", err), ("delta", delta), ("pose", est),
+                ("wl_in", cc["wl"]))}
+        return dict(est=est, err_prev=jnp.where(accept, err, cc["err_prev"]), wl=lam, inc=inc,
+                    it=i + 1, done=cc["done"] | converged
+                    | (inc > jcfg.max_increased_steps_allowed) | ~ok, **rec)
+
+    @jax.jit
+    def run(start, wlam0):
+        init = dict(est=start, err_prev=jnp.full((b,), jnp.finfo(jnp.float32).max), wl=wlam0,
+                    inc=jnp.zeros((b,), jnp.int32), it=jnp.int32(0),
+                    done=jnp.zeros((b,), bool), H=jnp.zeros((maxit, b, 6, 6)),
+                    b=jnp.zeros((maxit, b, 6)), err=jnp.zeros((maxit, b)),
+                    delta=jnp.zeros((maxit, b, 6)), pose=jnp.zeros((maxit, b, 4, 4)),
+                    wl_in=jnp.zeros((maxit, b)))
+        return jax.lax.while_loop(cond, body, init)
+
+    return run, jax.jit(solve)
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c.startswith("gn")])
+def test_jax_loop_replica(scene, case):  # noqa: F811
+    """The replica's pieces are the JAX package's functions bit for bit, its
+    count is REPLICA_ITERS (not the package's), the package's own first
+    iteration parts from it, and the port's first step parts from it by as
+    much: the count follows XLA's rounding inside the fused level program."""
+    c = case_setup(scene, case)
+    assert c["jcfg"].relative_tolerance is None and c["jcfg"].sigma is None
+    run, solve = jax_loop_replica(c)
+    wlam0 = jnp.full((c["b"],), 1.0 / c["jcfg"].weighter.initial_sigma**2, jnp.float32)
+    out = jax.tree.map(np.asarray, run(jnp.asarray(c["start"]), wlam0))
+    its = int(out["it"])
+    assert its == REPLICA_ITERS[case] != c["j_its"]
+    np.testing.assert_allclose(out["est"], c["j_est"], atol=1e-6)
+    poses_in = [c["start"], *out["pose"][: its - 1]]
+    for i in range(its):
+        alone = c["j_evaluate"](jnp.asarray(poses_in[i]), jnp.asarray(out["wl_in"][i]))
+        for k, name in enumerate(("H", "b", "err")):
+            np.testing.assert_array_equal(np.asarray(alone[k]), out[name][i], err_msg=f"{i} {name}")
+        np.testing.assert_array_equal(np.asarray(solve(out["H"][i], out["b"][i])), out["delta"][i])
+
+    # The package's level solve, capped at one iteration, against the
+    # replica's first pose: apart, within FIRST_STEP_ATOL.
+    name, batch, level = CASES[case]
+    caps = [c["jcfg"].max_iterations] * c["jcfg"].levels
+    caps[level] = 1
+    jcfg1 = dataclasses.replace(c["jcfg"], max_iterations_per_level=tuple(caps))
+    first = np.asarray(jax.jit(partial(jrobust._solve_level, cfg=jcfg1, level=level))(
+        *level_arrays(scene, batch, level), c["start"], c["eye"])[0])
+    assert not np.array_equal(first, out["pose"][0])
+    np.testing.assert_allclose(first, out["pose"][0], atol=FIRST_STEP_ATOL)
+
+    # The port's first step on the replica's H and b: as far apart.
+    hess, rhs = torch.tensor(out["H"][0]), torch.tensor(out["b"][0])
+    damp = 1e-8 * (1.0 + torch.diagonal(hess, dim1=-2, dim2=-1).sum(-1))
+    delta = torch.linalg.solve(hess + damp[:, None, None] * torch.eye(6), rhs[..., None])[..., 0]
+    np.testing.assert_allclose(delta.numpy(), out["delta"][0], atol=FIRST_STEP_ATOL)
+    pose = tse3.exp(torch.tensor(out["delta"][0])) @ torch.tensor(c["start"])
+    np.testing.assert_allclose(pose.numpy(), out["pose"][0], atol=FIRST_STEP_ATOL)
