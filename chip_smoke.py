@@ -124,13 +124,33 @@ Phases, each printing one JSON line:
    counted and printed); (c) each stage's device time at 640x480 (Harris,
    ZNCC each way, RANSAC, the refine; the backbone, each attention layer,
    the dual softmax with its selection, both fine stages), and a card
-   session's median step, host reads and peak memory of a step.
+   session's median step, host reads and peak memory of a step;
+9. training the LoFTR-lite matcher, with its own launch counts (none of the
+   port's kernels is on it): (a) a bundled-format directory of 10 frames at
+   640x480 (``bundled_dataset``: the synthetic scene, the TUM fr1 camera, a
+   hand-held trajectory); (b) ``apps.train_matcher`` on the card at its
+   default widths and schedule (800 steps), the holdout precision, recall
+   and subpixel errors within ``TRAIN_BOUNDS``, with the dataset's build
+   time, the first and median step, and the loss every
+   ``TRAIN_LOSS_EVERY`` steps; (c) the first ``TRAIN_CROSS_STEPS`` steps at
+   full width on the card and on the CPU from one init, losses and
+   parameters within ``TRAIN_CROSS_LOSS_RTOL`` / ``TRAIN_CROSS_PARAM_ATOL``,
+   and the peak memory of a step; (d) the trained file (keys and shapes of
+   the committed JAX file's) serving ``SparseVO(matcher="learned")`` over
+   ``TRAIN_SERVE_FRAMES`` frames of phase 5's directory on the card; (e)
+   ``apps.visualize report`` of phase 5's ``tpu_fast`` run with ``--ply``
+   on the card and with ``--platform cpu`` (with the figure and a GIF where
+   matplotlib imports), the clouds within ``VISUALIZE_ATOL``; (f)
+   ``TRAIN_PROFILED_STEPS`` steps in ``trace_span("train_step")`` under
+   ``start_trace`` / ``stop_trace``: the spans in the trace, the kernels a
+   step, the device's busy share of a step, ``device_memory_stats()``.
 
 Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers (the
 level kernel's row with a ``variants`` entry for its depth, prior, row-block
 and tile variants; each kernel's with a ``strides`` entry for its
 runtime-stride variant at strides 3 and 4, its ``cli_launches``, its
-``slam_launches``, its ``mapping_launches`` and its ``sparse_launches``),
+``slam_launches``, its ``mapping_launches``, its ``sparse_launches`` and its
+``train_launches``),
 and last ``{"ok": true,
 "device": {...}}``.  A failed check raises and exits
 non-zero before that line; without a GPU the script exits non-zero at once.
@@ -2148,6 +2168,317 @@ def run_sparse(dev, root: Path, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: training the LoFTR-lite matcher.
+# ---------------------------------------------------------------------------
+
+TRAIN_FRAMES = 10  # the bundled set's length
+
+
+def bundled_dataset(root: Path, height: int = HEIGHT, width: int = WIDTH,
+                    frames: int = TRAIN_FRAMES, seed: int = SEED) -> Path:
+    """Write a bundled-format directory (``ground_truth.json`` of 4x4
+    camera-to-world poses, ``camera_intrinsics.yaml``, RGB and 16-bit depth
+    PNGs at 5000 DN per metre) into ``root``: the seeded synthetic scene with
+    the TUM fr1 camera along ``handheld_trajectory(frames, seed)``."""
+    from dense_visual_odometry_torch.apps.make_dataset import TUM_DN_PER_M
+    from dense_visual_odometry_torch.io import png
+
+    gray, depth, k = synthetic.textured_scene(height, width, seed=seed)
+    poses = synthetic.handheld_trajectory(frames, seed=seed)
+    grays, depths = synthetic.render_sequence(gray, depth, k, poses)
+    for sub in ("rgb", "depth"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    gt = {}
+    for i, (g, d, pose) in enumerate(zip(grays, depths, poses)):
+        g8 = np.clip(np.round(g), 0, 255).astype(np.uint8)
+        png.write(root / f"rgb/{i}.png", np.stack([g8] * 3, axis=-1))
+        png.write(root / f"depth/{i}.png",
+                  np.clip(np.round(d * TUM_DN_PER_M), 0, 65535).astype(np.uint16))
+        gt[str(i)] = {"rgb": f"rgb/{i}.png", "depth": f"depth/{i}.png",
+                      "transformation": pose.tolist()}
+    (root / "ground_truth.json").write_text(json.dumps(gt))
+    (root / "camera_intrinsics.yaml").write_text(
+        f"intrinsics: {np.asarray(k, float).tolist()}\ndepth_scale: {1.0 / TUM_DN_PER_M}\n")
+    return root
+
+
+# (b) apps.train_matcher at its defaults (dim 64, two layers, scale 0.5:
+# 320x240, 1,200 tokens a frame; 48 pairs, 8 held out, 800 steps, lr 1e-3,
+# fine weight 0.25).  Bounds from both packages' CPU runs of the same
+# arguments on the same directory (``tests/jax_smoke_scene.py --train``):
+# JAX precision 0.9377, recall 0.4359, fine 1.632 px, final loss 2.281; the
+# port 0.9631, 0.4495, 1.611 px, 2.325.  Training in float32 parts any two
+# runs, and the packages' initial weights come from different streams, so
+# the margins are wide: precision 0.1 below the JAX run's, recall and the
+# fine error a quarter worse, the loss half again.  The coarse-centre
+# baseline depends on the data alone: the JAX run's within 1e-6 px.
+TRAIN_BOUNDS = {"holdout_precision_min": 0.84, "holdout_recall_min": 0.33,
+                "holdout_fine_px_max": 2.04, "holdout_coarse_px": 2.9755408316850662,
+                "final_loss_max": 3.42}
+TRAIN_LOSS_EVERY = 100
+# (c) The first TRAIN_CROSS_STEPS steps at full width on the card and on the
+# CPU from one init.  cuDNN's convolution algorithms and the gather's atomic
+# backward sum in other orders than the CPU, so the two part by rounding:
+# the first step's gradients, each parameter's within TRAIN_CROSS_GRAD_RTOL
+# of its CPU gradient's norm; each step's loss within TRAIN_CROSS_LOSS_RTOL.
+# Adam divides by the root of the second moment, so an element whose
+# gradient's sign rounding decides moves by up to the rate either way each
+# step: the parameters within TRAIN_CROSS_PARAM_ATOL, twice the rate times
+# the steps, and the whole update within TRAIN_CROSS_UPDATE_RTOL (the norm
+# of the card-CPU difference over the norm of the card's update).  Measured
+# on an H100: gradients 5.1e-5, losses 1.6e-5, parameters 1.7e-3 (14
+# elements above a tenth of the rate, the largest in ``l0_self_k``, whose
+# gradient has a null direction: adding one vector to every key leaves each
+# query's softmax as it is), the update 1.8e-3.
+TRAIN_CROSS_STEPS = 5
+TRAIN_CROSS_GRAD_RTOL = 5e-4
+TRAIN_CROSS_LOSS_RTOL = 1e-4
+TRAIN_CROSS_PARAM_ATOL = 2 * 1e-3 * TRAIN_CROSS_STEPS
+TRAIN_CROSS_UPDATE_RTOL = 0.02
+# (d) The trained file serves SparseVO(matcher="learned") over the first
+# TRAIN_SERVE_FRAMES frames of phase 5's directory.
+TRAIN_SERVE_FRAMES = 4
+# (e) apps.visualize on phase 5's tpu_fast report: the card's cloud against
+# the CPU's.
+VISUALIZE_ATOL = 1e-5
+# (f) Profiled training steps.
+TRAIN_PROFILED_STEPS = 10
+
+
+def train_cross(data, dev) -> dict:
+    """(c): the first TRAIN_CROSS_STEPS training steps on ``dev`` and on the
+    CPU from one ``init_params`` draw, the pairs of the tool's own stream;
+    the peak memory of a card step above what was allocated before it."""
+    from dense_visual_odometry_torch.apps import train_matcher
+    from dense_visual_odometry_torch.models import matcher
+
+    args = train_matcher.parse_args([])
+    params = matcher.init_params(torch.Generator().manual_seed(SEED), dim=args.dim,
+                                 layers=args.layers)
+    sides = {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = matcher.LoFTRLite.from_numpy(params, d)
+        opt, sched = train_matcher.make_optimizer(model, args.lr, args.steps)
+        sides[side] = (model, opt, sched, train_matcher.upload(data, d))
+    pick = np.random.default_rng(args.seed + 1)
+    out = {"losses": {"card": [], "cpu": []}}
+    for step in range(TRAIN_CROSS_STEPS):
+        i = int(pick.choice(np.arange(args.pairs)))
+        for side, (model, opt, sched, tensors) in sides.items():
+            if side == "card" and step == TRAIN_CROSS_STEPS - 1:
+                torch.cuda.synchronize(dev)
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            loss = train_matcher.train_step(model, opt, sched, tensors, i, args.fine_weight)
+            out["losses"][side].append(float(loss))
+            if side == "card" and step == TRAIN_CROSS_STEPS - 1:
+                out["peak_bytes_per_step"] = int(torch.cuda.max_memory_allocated(dev) - base)
+        if step == 0:  # the gradients at the init, each parameter against its norm
+            grads = {side: {n: p.grad.cpu() for n, p in sides[side][0].named_parameters()}
+                     for side in sides}
+            out["grad_rel_diff"] = {n: float((grads["card"][n] - g).abs().max()
+                                             / max(float(g.norm()), 1e-30))
+                                    for n, g in grads["cpu"].items()}
+    card, cpu = (matcher.params_to_numpy(dict(sides[s][0].named_parameters()))
+                 for s in ("card", "cpu"))
+    diff = {k: np.abs(card[k] - cpu[k]) for k in card}
+    out["loss_rel_diff"] = [abs(a - b) / abs(b) for a, b in
+                            zip(out["losses"]["card"], out["losses"]["cpu"])]
+    out["max_grad_rel_diff"] = max(out.pop("grad_rel_diff").values())
+    worst = max(diff, key=lambda k: diff[k].max())
+    out["max_abs_param_diff"] = {"value": float(diff[worst].max()), "parameter": worst,
+                                 "elements_above_rate_over_10": int(sum(
+                                     (d > args.lr / 10).sum() for d in diff.values()))}
+    moved = np.sqrt(sum(float(((card[k] - params[k]) ** 2).sum()) for k in card))
+    out["update_rel_diff"] = float(np.sqrt(sum(float((d ** 2).sum()) for d in diff.values()))
+                                   / moved)
+    return out
+
+
+def profile_training(data, dev, root: Path) -> dict:
+    """(f): TRAIN_PROFILED_STEPS steps, each in ``trace_span("train_step")``
+    and ending in the loss's read as ``train_matcher.main`` does, under
+    ``start_trace`` / ``stop_trace``: the device kernels each step launched
+    (by the correlation ids of the launches inside its span), their summed
+    time over the step's span (the device's busy share), and the allocator's
+    statistics."""
+    from dense_visual_odometry_torch.apps import train_matcher
+    from dense_visual_odometry_torch.models import matcher
+    from dense_visual_odometry_torch.utils import profiling
+
+    args = train_matcher.parse_args([])
+    model = matcher.LoFTRLite.from_numpy(matcher.init_params(
+        torch.Generator().manual_seed(SEED), dim=args.dim, layers=args.layers), dev)
+    opt, sched = train_matcher.make_optimizer(model, args.lr, args.steps)
+    tensors = train_matcher.upload(data, dev)
+    float(train_matcher.train_step(model, opt, sched, tensors, 0, args.fine_weight))  # warm-up
+    profiling.start_trace(root / "train_trace")
+    for i in range(TRAIN_PROFILED_STEPS):
+        with profiling.trace_span("train_step"):
+            float(train_matcher.train_step(model, opt, sched, tensors, i % args.pairs,
+                                           args.fine_weight))
+    trace = profiling.stop_trace()
+    events = json.loads(trace.read_text())["traceEvents"]
+    spans = [e for e in events if e.get("name") == "train_step" and e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"]
+    launches = [e for e in events if e.get("cat") == "cuda_runtime" and e.get("ph") == "X"]
+    kernels = {e["args"].get("correlation"): e for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X"}
+    steps = []
+    for span in spans:
+        lo, hi = span["ts"], span["ts"] + span["dur"]
+        ids = {e["args"].get("correlation") for e in launches if lo <= e["ts"] <= hi}
+        mine = [kernels[c] for c in ids if c in kernels]
+        steps.append({"span_us": span["dur"], "kernels": len(mine),
+                      "kernel_us": sum(k["dur"] for k in mine)})
+    stats = profiling.device_memory_stats(dev)
+    return {
+        "trace": str(trace.relative_to(root)), "spans": len(spans), "steps": steps,
+        "kernels_per_step": float(np.median([s["kernels"] for s in steps])) if steps else 0.0,
+        "busy_share": (sum(s["kernel_us"] for s in steps) / sum(s["span_us"] for s in steps)
+                       if steps else 0.0),
+        "memory_stats": None if stats is None else {
+            k: stats[k] for k in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")},
+    }
+
+
+def visualize_clouds(report: Path, dev, root: Path) -> dict:
+    """(e): ``apps.visualize report <report> --ply`` on ``dev`` and on the
+    CPU (with the figure and a GIF where matplotlib imports here), and the
+    two clouds ``build_cloud`` gives, compared."""
+    from dense_visual_odometry_torch.apps import visualize
+
+    try:
+        import matplotlib  # noqa: F401
+
+        drawn = True
+    except ImportError:
+        drawn = False
+    out = {"matplotlib": drawn}
+    est, _, info = visualize.load_poses("report", report)
+    seq = visualize.load_sequence(info.get("type", "test"), info)
+    clouds = {}
+    for side, platform in (("card", dev.type), ("cpu", "cpu")):
+        ply = root / f"cloud_{side}.ply"
+        argv = ["report", str(report), "--ply", str(ply), "--platform", platform,
+                "-o", str(root / f"trajectory_{side}.png")]
+        if drawn:
+            visualize.main([*argv, "--animate", str(root / f"replay_{side}.gif"),
+                            "--animate-stride", "5"])
+        else:  # main's steps without the figure
+            pts, cols = visualize.build_cloud(est, seq, 3, 200_000, platform)
+            visualize.write_ply(ply, pts, cols)
+        clouds[side] = visualize.build_cloud(est, seq, 3, 200_000, platform)
+        out[f"{side}_written"] = sorted(p.name for p in root.glob(f"*_{side}.*"))
+    out["points"] = len(clouds["card"][0])
+    out["same_colours"] = bool(np.array_equal(clouds["card"][1], clouds["cpu"][1]))
+    out["max_abs_point_diff"] = float(np.abs(clouds["card"][0] - clouds["cpu"][0]).max())
+    out["ply_equal"] = (root / "cloud_card.ply").read_bytes() == (root / "cloud_cpu.ply").read_bytes()
+    return out
+
+
+def run_train(dev, root: Path, smi: str) -> dict:
+    """Phase 9 on ``dev``: (a) a bundled-format directory, (b)
+    ``apps.train_matcher`` at its defaults on it (holdout within
+    TRAIN_BOUNDS), (c) the card against the CPU over the first steps, (d) the
+    trained file serving ``SparseVO(matcher="learned")`` on phase 5's
+    directory, (e) ``apps.visualize`` on phase 5's report, card against
+    CPU, (f) profiled steps.  The launch counts are zeroed just before (b)
+    and read just after (f).  Raises on any failed check."""
+    from dense_visual_odometry_torch.apps import train_matcher
+    from dense_visual_odometry_torch.io.datasets import host_gray_u8, load_tum_sequence
+    from dense_visual_odometry_torch.models import matcher
+    from dense_visual_odometry_torch.models.sparse import SparseVO
+
+    out = {"phase": "train", "image": [HEIGHT, WIDTH], "frames": TRAIN_FRAMES}
+    t_phase = time.perf_counter()
+    data_dir = bundled_dataset(root / "bundled")
+    out["write_dataset_s"] = time.perf_counter() - t_phase
+    weights = root / "trained" / "loftr_lite.npz"
+    zero_launches()
+    summary = train_matcher.main(["--data-dir", str(data_dir), "-o", str(weights)])
+    losses, step_s = summary.pop("losses"), summary.pop("step_s")
+    out["dataset_s"] = summary.pop("dataset_s")
+    out["summary"] = summary
+    out["first_step_ms"] = step_s[0] * 1e3
+    out["median_step_ms"] = float(np.median(step_s[1:])) * 1e3
+    out["loss_at"] = {str(t): losses[t] for t in
+                      (*range(0, len(losses), TRAIN_LOSS_EVERY), len(losses) - 1)}
+
+    data = train_matcher.build_dataset(train_matcher.parse_args(["--data-dir", str(data_dir)]))
+    out["cross"] = train_cross(data, dev)
+
+    seq = load_tum_sequence(root / "seq", camera_yaml=root / "camera.yaml")
+    trained, committed = matcher.load_params(weights), matcher.load_params()
+    out["same_layout_as_committed"] = (
+        {k: v.shape for k, v in trained.items()} == {k: v.shape for k, v in committed.items()})
+    vo = SparseVO(seq.camera, seed=SEED, matcher="learned", matcher_weights=weights, device=dev)
+    served, poses = [], []
+    for n in range(TRAIN_SERVE_FRAMES):
+        rgb, depth = seq.frame(n)
+        poses.append(vo.step(host_gray_u8(rgb).astype(np.float32), depth).cpu())
+        if vo.last_result is not None:
+            served.append(bool(vo.last_result.success))
+    out["serve"] = {"success": served, "finite": bool(torch.isfinite(torch.stack(poses)).all()),
+                    "translation_m": float(torch.stack(poses)[-1, :3, 3].norm()),
+                    "model_device": str(next(vo.model.parameters()).device)}
+
+    out["visualize"] = visualize_clouds(root / "out_tpu_fast" / "report.json", dev, root)
+    out["profile"] = profile_training(data, dev, root)
+    out["launches"], _ = read_launches()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    c, p, v = out["cross"], out["profile"], out["visualize"]
+    print(f"train dataset: {TRAIN_FRAMES} frames written in {out['write_dataset_s']} s, "
+          f"the training pairs rendered in {out['dataset_s']} s", flush=True)
+    print(f"train steps: first {out['first_step_ms']} ms, median {out['median_step_ms']} ms, "
+          f"peak {c['peak_bytes_per_step']} bytes a step, {p['kernels_per_step']} kernels a "
+          f"step, device busy {p['busy_share']} of a step [{smi}]", flush=True)
+    print(f"train loss: {json.dumps(out['loss_at'])}", flush=True)
+    print(f"train holdout: {json.dumps(summary)}", flush=True)
+    print(f"train card vs CPU: first gradients' max rel diff {c['max_grad_rel_diff']}; over "
+          f"{TRAIN_CROSS_STEPS} steps loss rel diff {c['loss_rel_diff']}, max |param diff| "
+          f"{json.dumps(c['max_abs_param_diff'])}, update rel diff {c['update_rel_diff']}",
+          flush=True)
+    print(f"train serve: {json.dumps(out['serve'])}", flush=True)
+    print(f"visualize: matplotlib {'imports' if v['matplotlib'] else 'does not import'}; "
+          f"{v['points']} points, max |card - cpu| {v['max_abs_point_diff']}, PLY equal "
+          f"{v['ply_equal']}", flush=True)
+    print(f"train launches of the port's kernels: {out['launches']}", flush=True)
+    print(f"train phase: {out['seconds']} s", flush=True)
+
+    b = TRAIN_BOUNDS
+    if (summary["holdout_precision"] < b["holdout_precision_min"]
+            or summary["holdout_recall"] < b["holdout_recall_min"]
+            or summary["holdout_fine_px"] > b["holdout_fine_px_max"]
+            or abs(summary["holdout_coarse_px"] - b["holdout_coarse_px"]) > 1e-6
+            or not summary["final_loss"] <= b["final_loss_max"]):
+        raise AssertionError(f"train: the holdout is outside TRAIN_BOUNDS: {summary}")
+    if len(losses) != summary["steps"] or not np.isfinite(losses).all():
+        raise AssertionError("train: a loss is missing or not finite")
+    if (c["max_grad_rel_diff"] > TRAIN_CROSS_GRAD_RTOL
+            or max(c["loss_rel_diff"]) > TRAIN_CROSS_LOSS_RTOL
+            or c["max_abs_param_diff"]["value"] > TRAIN_CROSS_PARAM_ATOL
+            or c["update_rel_diff"] > TRAIN_CROSS_UPDATE_RTOL):
+        raise AssertionError(f"train: the card and the CPU part: {c}")
+    if not out["same_layout_as_committed"]:
+        raise AssertionError("train: the trained file's keys or shapes are not the committed's")
+    if (len(served) != TRAIN_SERVE_FRAMES - 1 or not out["serve"]["finite"]
+            or out["serve"]["model_device"] != str(dev)):
+        raise AssertionError(f"train: the trained file did not serve: {out['serve']}")
+    if v["max_abs_point_diff"] > VISUALIZE_ATOL or not v["same_colours"] or not v["points"]:
+        raise AssertionError(f"visualize: the card's and the CPU's clouds part: {v}")
+    if any(not v[f"{side}_written"] for side in ("card", "cpu")):
+        raise AssertionError(f"visualize: nothing written: {v}")
+    if p["spans"] != TRAIN_PROFILED_STEPS or not p["kernels_per_step"]:
+        raise AssertionError(f"profile: the spans or their kernels are missing: {p}")
+    if p["memory_stats"] is None:
+        raise AssertionError("profile: device_memory_stats() is None on the card")
+    return out
+
+
 def zero_launches() -> None:
     """Every launch count of the port's kernels to 0."""
     lm_level.launches = 0
@@ -2386,6 +2717,7 @@ def run(dev: torch.device, smi: str) -> list:
         slam = run_slam(grays, depths, k_np, poses, dev, Path(tmp))
         mapping = run_mapping(dev, Path(tmp), smi)
         sparse = run_sparse(dev, Path(tmp), smi)
+        train = run_train(dev, Path(tmp), smi)
 
     # Per-kernel summary (level-0 cases; times from phase 3).
     def summary(name, source, replaces, check, fields):
@@ -2485,6 +2817,7 @@ def run(dev: torch.device, smi: str) -> list:
         row["slam_launches"] = slam["launches"][row["name"]]
         row["mapping_launches"] = mapping["launches"][row["name"]]
         row["sparse_launches"] = sparse["launches"][row["name"]]
+        row["train_launches"] = train["launches"][row["name"]]
     return kernels
 
 

@@ -10,7 +10,8 @@ the SLAM back end on one device: keyframe SLAM (``models.slam.SlamSession``,
 (``models.posegraph``) and dense bundle adjustment (``models.dense_ba``),
 mapping (``models.tsdf``, ``models.brick_tsdf``, ``models.frame_to_model``),
 and sparse odometry (``models.sparse.SparseVO`` with Harris + ZNCC or the
-LoFTR-lite matcher of ``models.matcher``).  The three kernels of the
+LoFTR-lite matcher of ``models.matcher``, which ``apps.train_matcher``
+trains).  The three kernels of the
 tracker live in ``ops/cuda``; each has a plain PyTorch version that the CPU
 runs.
 

@@ -169,7 +169,6 @@ def _timed(frames: Iterable, spent: list) -> Iterator:
 
 def run(args) -> dict:
     import numpy as np
-    import torch
 
     from dense_visual_odometry_torch import metrics
     from dense_visual_odometry_torch.config import RobustDVOConfig
@@ -180,6 +179,7 @@ def run(args) -> dict:
     )
     from dense_visual_odometry_torch.io.datasets import frame_route
     from dense_visual_odometry_torch.models.robust import resolve_device
+    from dense_visual_odometry_torch.utils import profiling
 
     device = resolve_device(args.platform)
     if args.benchmark == "test":
@@ -205,13 +205,8 @@ def run(args) -> dict:
         slam_refine_caps=getattr(args, "slam_refine_caps", None),
         sparse_matcher=getattr(args, "sparse_matcher", "zncc"),
     )
-    profiler = None
     if args.profile_dir:
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
-        profiler.start()
+        profiling.start_trace(args.profile_dir)
 
     def host(pose) -> np.ndarray:
         return pose.detach().cpu().numpy().astype(np.float64)
@@ -248,12 +243,8 @@ def run(args) -> dict:
     transforms = [np.eye(4)]
     for j in range(1, len(poses)):
         transforms.append(np.linalg.inv(poses[j]) @ poses[j - 1])
-    if profiler is not None:
-        profiler.stop()
-        out_dir = Path(args.profile_dir)
-        out_dir.mkdir(parents=True, exist_ok=True)
-        profiler.export_chrome_trace(str(out_dir / "trace.json"))
-        logger.info("profiler trace -> %s", out_dir / "trace.json")
+    if args.profile_dir:
+        logger.info("profiler trace -> %s", profiling.stop_trace())
 
     extra = finalize()
     poses = np.stack(poses)

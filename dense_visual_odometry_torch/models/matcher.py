@@ -1,7 +1,7 @@
-"""LoFTR-lite: the learned detector-free coarse matcher, serving half.
+"""LoFTR-lite: the learned detector-free coarse matcher.
 
-Counterpart of ``dense_visual_odometry_tpu/models/matcher.py`` for inference
-with trained weights (the training half, its labels and losses are not here):
+Counterpart of ``dense_visual_odometry_tpu/models/matcher.py``, serving and
+training halves:
 
 - a stride-8 CNN backbone (three stride-2 3x3 convs with relu), a 2-D sine
   positional encoding on the token grid;
@@ -12,15 +12,27 @@ with trained weights (the training half, its labels and losses are not here):
 - the fine stage: the classical ZNCC parabola fit around each coarse match
   (``sparse.match_patches``, the default) or the learned head (a stride-2
   feature map, cosine correlation of the source vector against a 7x7 target
-  window, a softmax heatmap and its soft-argmax).
+  window, a softmax heatmap and its soft-argmax);
+- training (``apps/train_matcher.py``): ``init_params``, the ground-truth
+  labels of rendered pairs (``coarse_gt_with_targets``, host numpy), and
+  the two losses, ``matching_loss`` (dual-softmax cross-entropy at the true
+  cells) and ``fine_loss`` (the fine head's squared pixel error,
+  teacher-forced at the true cell), differentiable through
+  :meth:`LoFTRLite.similarity` and the fine stage.  Every clamp of the
+  forward pass differentiates as ``jnp.clip`` / ``jnp.maximum`` do: 0.5 at
+  a bound (:func:`clip`), where ``torch.clamp`` gives 1.
 
 Weights: ``load_params`` reads the JAX package's committed
 ``dense_visual_odometry_tpu/weights/loftr_lite.npz`` by path (``np.load``,
 read-only, without importing that package), or a state-dict ``.pt`` as its
 ``save_params_torch`` writes it (convs OIHW).  ``params_from_numpy`` turns
 the JAX layout into this module's parameters: convs HWIO -> OIHW, and an
-(in, out) matrix applied as ``x @ w`` into ``F.linear``'s (out, in).  The
-parameters keep the JAX package's names.
+(in, out) matrix applied as ``x @ w`` into ``F.linear``'s (out, in);
+``params_to_numpy`` turns them back, and ``save_params`` /
+``save_params_torch`` write the two files the JAX package reads.  The
+parameters keep the JAX package's names.  Serving runs without gradients
+(``requires_grad`` off, ``no_grad`` wrappers); training turns
+``requires_grad`` on.
 
 The stride-2 convs pad as XLA's ``"SAME"`` does (on an even size 0 before
 and 1 after), and the layer norm takes its eps inside the rsqrt.  TF32 stays
@@ -32,13 +44,14 @@ from __future__ import annotations
 
 import math
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dense_visual_odometry_torch.models.dense_ba import clip_grad
 from dense_visual_odometry_torch.models.sparse import (
     Matches,
     fit_from_matches,
@@ -58,6 +71,69 @@ _SUFFIXES = ("_w", "_b", "_q", "_k", "_v", "_o", "_ln1", "_ln1b", "_ln2", "_ln2b
 
 
 # -- parameters ------------------------------------------------------------
+
+def init_params(generator: torch.Generator, dim: int = 64, layers: int = 2, heads: int = 4,
+                channels: Tuple[int, ...] = (32, 64)) -> Dict[str, np.ndarray]:
+    """Random parameters in the JAX package's layout (convs HWIO, matrices
+    (in, out)), with its keys, shapes, fan-in scales, zeros, ones and
+    temperatures; the normal draws come from ``generator`` in key order."""
+    def dense(shape, scale=None):
+        scale = scale if scale is not None else 1.0 / np.sqrt(shape[0])
+        draw = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (draw * float(scale)).numpy()
+
+    def const(value, shape):
+        return np.full(shape, value, np.float32)
+
+    params = {}
+    c_in = 1
+    for i, c in enumerate((*channels, dim)):
+        params[f"conv{i}_w"] = dense((3, 3, c_in, c), scale=np.sqrt(2.0 / (9 * c_in)))
+        params[f"conv{i}_b"] = const(0.0, (c,))
+        c_in = c
+    for layer in range(layers):
+        for kind in ("self", "cross"):
+            p = f"l{layer}_{kind}"
+            for name in ("q", "k", "v", "o"):
+                params[f"{p}_{name}"] = dense((dim, dim))
+            params[f"{p}_ln1"] = const(1.0, (dim,))
+            params[f"{p}_ln1b"] = const(0.0, (dim,))
+            params[f"{p}_ln2"] = const(1.0, (dim,))
+            params[f"{p}_ln2b"] = const(0.0, (dim,))
+            params[f"{p}_mlp1"] = dense((dim, 2 * dim))
+            params[f"{p}_mlp1b"] = const(0.0, (2 * dim,))
+            params[f"{p}_mlp2"] = dense((2 * dim, dim))
+            params[f"{p}_mlp2b"] = const(0.0, (dim,))
+    params["temperature"] = const(0.1, ())
+    c0 = channels[0]
+    params["fine_w"] = dense((3, 3, c0, c0), scale=np.sqrt(2.0 / (9 * c0)))
+    params["fine_b"] = const(0.0, (c0,))
+    params["fine_temperature"] = const(0.1, ())
+    if heads != HEADS:
+        raise ValueError(f"the head count is the module constant {HEADS}, not {heads}")
+    return params
+
+
+def save_params(path, params: Dict[str, np.ndarray]) -> None:
+    """An ``.npz`` in the JAX layout (``params_to_numpy``'s), as the JAX
+    package's ``save_params`` writes and its ``load_params`` reads."""
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **{k: np.asarray(v, np.float32) for k, v in params.items()})
+
+
+def save_params_torch(path, params: Dict[str, np.ndarray]) -> None:
+    """A state-dict ``.pt`` of JAX-layout parameters in the file layout of
+    the JAX package's ``save_params_torch``: convs OIHW, matrices (in, out)
+    as they are; its ``load_params_torch`` and :func:`load_params` read it."""
+    state = {}
+    for k, v in params.items():
+        a = np.asarray(v, np.float32)
+        if k.endswith("_w") and a.ndim == 4:  # HWIO -> OIHW
+            a = np.transpose(a, (3, 2, 0, 1))
+        state[k] = torch.from_numpy(np.ascontiguousarray(a))
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    torch.save(state, path)
+
 
 def load_params(path=DEFAULT_WEIGHTS) -> Dict[str, np.ndarray]:
     """The matcher's parameters in the JAX package's layout (convs HWIO,
@@ -96,6 +172,43 @@ def params_from_numpy(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             a = a.T
         out[k] = torch.from_numpy(np.ascontiguousarray(a))
     return out
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """This module's parameters (``dict(model.named_parameters())``) -> the
+    JAX layout: the inverse of :func:`params_from_numpy`."""
+    out = {}
+    for k, v in params.items():
+        a = v.detach().cpu().numpy().astype(np.float32)
+        if a.ndim == 4:  # OIHW -> HWIO
+            a = np.transpose(a, (2, 3, 1, 0))
+        elif a.ndim == 2:
+            a = a.T
+        elif k.endswith("temperature"):  # held as (1,), a scalar in the JAX layout
+            a = a.reshape(())
+        out[k] = np.ascontiguousarray(a).reshape(a.shape)
+    return out
+
+
+class _Clip(torch.autograd.Function):
+    """``torch.clamp`` whose derivative is ``jnp.clip``'s (0.5 at a bound)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return grad * clip_grad(x, *ctx.bounds), None, None
+
+
+def clip(x: torch.Tensor, lo: float, hi: float = math.inf) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` (``jnp.maximum(x, lo)`` without ``hi``):
+    ``torch.clamp``'s values with the JAX derivative."""
+    return _Clip.apply(x, lo, hi)
 
 
 def _same_pad(x: torch.Tensor, stride: int, k: int = 3) -> torch.Tensor:
@@ -208,16 +321,21 @@ class LoFTRLite(nn.Module):
     def dual_softmax(self, f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
         f1 = f1 / (torch.linalg.vector_norm(f1, dim=-1, keepdim=True) + 1e-6)
         f2 = f2 / (torch.linalg.vector_norm(f2, dim=-1, keepdim=True) + 1e-6)
-        s = (f1 @ f2.T) / torch.clamp(self.p("temperature"), min=1e-3)
+        s = (f1 @ f2.T) / clip(self.p("temperature"), 1e-3)
         return torch.softmax(s, dim=-1) * torch.softmax(s, dim=-2)
 
-    @torch.no_grad()
-    def coarse_similarity(self, gray1: torch.Tensor, gray2: torch.Tensor) -> torch.Tensor:
-        """-> (N1, N2) dual-softmax correspondence probabilities."""
+    def similarity(self, gray1: torch.Tensor, gray2: torch.Tensor) -> torch.Tensor:
+        """-> (N1, N2) dual-softmax correspondence probabilities, with
+        gradients where the parameters require them (the losses' forward)."""
         f1, f2 = self._backbone(gray1), self._backbone(gray2)
         for layer in range(self.layers):
             f1, f2 = self.transformer_layer(layer, f1, f2)
         return self.dual_softmax(f1, f2)
+
+    @torch.no_grad()
+    def coarse_similarity(self, gray1: torch.Tensor, gray2: torch.Tensor) -> torch.Tensor:
+        """-> (N1, N2) dual-softmax correspondence probabilities."""
+        return self.similarity(gray1, gray2)
 
     @staticmethod
     def select(p: torch.Tensor, hc: int, wc: int, top_k: int = 512,
@@ -276,7 +394,7 @@ class LoFTRLite(nn.Module):
         win = f2[vi.clamp(0, h2 - 1), ui.clamp(0, w2 - 1)]  # (K, W^2, C)
         cvec = cvec * torch.rsqrt((cvec * cvec).sum(-1, keepdim=True) + 1e-8)
         win = win * torch.rsqrt((win * win).sum(-1, keepdim=True) + 1e-8)
-        temp = torch.clamp(self.p("fine_temperature"), min=1e-3)
+        temp = clip(self.p("fine_temperature"), 1e-3)
         logits = torch.einsum("kc,kwc->kw", cvec, win) / temp
         heat = torch.softmax(torch.where(inb, logits, torch.full_like(logits, -1e9)), dim=-1)
         exp_dy = heat @ dy.to(torch.float32)
@@ -361,3 +479,102 @@ def track_sparse_learned(
                                 confidence=zncc.confidence * coarse.confidence)
     return fit_from_matches(matches, depth_prev_m, depth_curr_m, intrinsics, **fit_kwargs)
 
+
+
+# -- training labels and losses ----------------------------------------------
+
+def coarse_gt_assignment(
+    depth1_m: np.ndarray,
+    depth2_m: np.ndarray,
+    intrinsics: np.ndarray,
+    transform_1_to_2: np.ndarray,
+    occlusion_tol: float = 0.05,
+) -> np.ndarray:
+    """Ground-truth coarse assignment (host, once per training pair).
+
+    -> (N1,) int32: target cell index per source cell, -1 where the cell
+    centre has no valid visible correspondence.
+    """
+    return coarse_gt_with_targets(
+        depth1_m, depth2_m, intrinsics, transform_1_to_2, occlusion_tol
+    )[0]
+
+
+def coarse_gt_with_targets(
+    depth1_m: np.ndarray,
+    depth2_m: np.ndarray,
+    intrinsics: np.ndarray,
+    transform_1_to_2: np.ndarray,
+    occlusion_tol: float = 0.05,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Ground-truth coarse assignment and continuous targets (host numpy,
+    once per training pair; the JAX package's arithmetic, bit for bit).
+
+    -> ``(gt (N1,) int32, uv_target (N1, 2) float32)``: the target cell of
+    each source cell centre (-1 where it has no visible correspondence) and
+    the continuous warped pixel (junk where ``gt < 0``), the fine head's
+    target.  Exact depth and relative pose, with an occlusion check against
+    the target depth map.
+    """
+    h, w = depth1_m.shape
+    hc, wc = h // STRIDE, w // STRIDE
+    off = (STRIDE - 1) / 2.0
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    vs, us = np.meshgrid(np.arange(hc), np.arange(wc), indexing="ij")
+    u = us.ravel() * STRIDE + off
+    v = vs.ravel() * STRIDE + off
+    z = depth1_m[np.round(v).astype(int), np.round(u).astype(int)]
+    x = (u - cx) / fx * z
+    y = (v - cy) / fy * z
+    pts = np.stack([x, y, z], -1) @ transform_1_to_2[:3, :3].T + transform_1_to_2[:3, 3]
+    zt = pts[:, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ut = pts[:, 0] / zt * fx + cx
+        vt = pts[:, 1] / zt * fy + cy
+    # Zero source depth divides to nan / inf: a value the bounds reject
+    # (those cells are dropped by z > 0 anyway).
+    ut = np.nan_to_num(ut, nan=-1.0, posinf=-1.0, neginf=-1.0)
+    vt = np.nan_to_num(vt, nan=-1.0, posinf=-1.0, neginf=-1.0)
+    uc = np.floor(ut / STRIDE).astype(np.int64)
+    vc = np.floor(vt / STRIDE).astype(np.int64)
+    inside = (z > 0) & (zt > 1e-6) & (uc >= 0) & (uc < wc) & (vc >= 0) & (vc < hc)
+    # Occlusion: the target depth at the landing pixel must agree.
+    ui = np.clip(np.round(ut), 0, w - 1).astype(int)
+    vi = np.clip(np.round(vt), 0, h - 1).astype(int)
+    z2 = depth2_m[vi, ui]
+    visible = inside & (z2 > 0) & (np.abs(z2 - zt) <= occlusion_tol * np.maximum(zt, 0.5))
+    gt = np.where(visible, vc * wc + uc, -1)
+    uv_target = np.stack([ut, vt], axis=-1).astype(np.float32)
+    return gt.astype(np.int32), uv_target
+
+
+def _masked_mean(values: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """sum(values where keep) / max(count(keep), 1)."""
+    kept = torch.where(keep, values, torch.zeros_like(values))
+    return kept.sum() / keep.sum().clamp(min=1)
+
+
+def matching_loss(model: LoFTRLite, gray1: torch.Tensor, gray2: torch.Tensor,
+                  gt_assignment: torch.Tensor) -> torch.Tensor:
+    """Dual-softmax cross-entropy at the ground-truth cells (LoFTR's coarse
+    loss): ``-mean log P[i, gt_i]`` over the cells with a correspondence."""
+    p = model.similarity(gray1, gray2)
+    gt = gt_assignment.long()
+    picked = p.gather(1, gt.clamp(0, p.shape[1] - 1)[:, None])[:, 0]
+    return _masked_mean(-torch.log(clip(picked, 1e-9, 1.0)), gt >= 0)
+
+
+def fine_loss(model: LoFTRLite, gray1: torch.Tensor, gray2: torch.Tensor,
+              gt_assignment: torch.Tensor, uv_target: torch.Tensor) -> torch.Tensor:
+    """The fine stage's loss (LoFTR's l_f), teacher-forced: each source cell
+    centre against the window around its ground-truth cell, the squared
+    pixel error of the soft-argmax against ``uv_target``."""
+    h, w = gray1.shape
+    hc, wc = h // STRIDE, w // STRIDE
+    f1, f2 = model._fine_features(gray1), model._fine_features(gray2)
+    gt = gt_assignment.long()
+    centers = _cell_centers(hc, wc, gray1.device)
+    uv_pred, _, ok = model._fine_correlate(f1, f2, centers, centers[gt.clamp(0, hc * wc - 1)])
+    err = ((uv_pred - uv_target) ** 2).sum(-1)
+    return _masked_mean(err, (gt >= 0) & ok)

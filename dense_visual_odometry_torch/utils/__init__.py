@@ -1,1 +1,1 @@
-"""Utilities: Lie groups."""
+"""Utilities: Lie groups, rigid fits and RANSAC, profiling, logging."""

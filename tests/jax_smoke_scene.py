@@ -6,6 +6,7 @@ tracking errors that ``chip_smoke.BOUNDS`` are set from.
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --slam
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --mapping
     JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --sparse
+    JAX_PLATFORMS=cpu python -m tests.jax_smoke_scene --train
 
 CONFIG is ``tpu_fast`` (the default) or a name of ``chip_smoke.VARIANTS``
 (``fast_prior``, ``fast_depth``, ...).  The scene is the smoke's own
@@ -59,6 +60,13 @@ minutes.
 summaries' ATE and RPE (the packages draw RANSAC's samples from different
 random streams, so their trajectories part by more than rounding).  About
 5 minutes, most of it the learned matcher's attention at 640x480.
+
+``--train``: the smoke's training run (phase 9) on the CPU instead
+(``chip_smoke.TRAIN_BOUNDS`` are set from it): both packages'
+``apps.train_matcher`` at their default widths and schedule on the
+bundled-format directory ``chip_smoke.bundled_dataset`` writes (10 frames
+at 640x480), one JSON line a package with its summary (the packages draw
+their initial weights from different random streams).  About 15 minutes.
 
 ``--cli``: the smoke's CLI phase on the CPU instead (``chip_smoke.CLI_BOUNDS``
 are set from it): the directory ``chip_smoke.cli_dataset`` writes, tracked by
@@ -310,8 +318,36 @@ def sparse_runs() -> int:
     return 0
 
 
+def train_runs() -> int:
+    """Both packages' ``apps.train_matcher`` on the smoke's training data."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from dense_visual_odometry_torch.apps import train_matcher as ttrain
+    from dense_visual_odometry_tpu.apps import train_matcher as jtrain
+
+    with tempfile.TemporaryDirectory(prefix="dvo_train_") as tmp:
+        root = Path(tmp)
+        data = cs.bundled_dataset(root / "bundled")
+        for side, tool in (("jax", jtrain), ("port", ttrain)):
+            argv = ["--data-dir", str(data), "-o", str(root / f"{side}.npz"),
+                    "--platform", "cpu"]
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                tool.main(argv)
+            lines = buf.getvalue().strip().splitlines()
+            losses = [ln for ln in lines if ln.startswith("step ")]
+            print(json.dumps({"package": side, "progress": losses,
+                              **json.loads(lines[-1])}), flush=True)
+    return 0
+
+
 def main(argv) -> int:
     jax.config.update("jax_platforms", "cpu")
+    if argv[:1] == ["--train"]:
+        return train_runs()
     if argv[:1] == ["--sparse"]:
         return sparse_runs()
     if argv[:1] == ["--mapping"]:
