@@ -143,14 +143,29 @@ Phases, each printing one JSON line:
    matplotlib imports), the clouds within ``VISUALIZE_ATOL``; (f)
    ``TRAIN_PROFILED_STEPS`` steps in ``trace_span("train_step")`` under
    ``start_trace`` / ``stop_trace``: the spans in the trace, the kernels a
-   step, the device's busy share of a step, ``device_memory_stats()``.
+   step, the device's busy share of a step, ``device_memory_stats()``;
+10. the multi-device back end, with its own launch counts
+   (``run_distributed``): ``parallel.dryrun.dryrun_multichip`` on phase 4's
+   B=64 rows under ``DIST_CONFIGS`` (``tpu_fast``, the tile level-kernel
+   path ``slam_tiles_cb48`` and ``parity_esm``, so that all three kernels
+   launch), the edge-sharded pose graph over the 64-pose tracked chain with
+   ``DIST_LOOPS`` and the owner-sharded dense BA over 8 keyframes at grid
+   stride 8 (P=4,800) and on the JAX package's planar test problem
+   (``planar_ba_problem``): (a) at world 1 over NCCL in this process (a
+   file store in a temporary directory), equal bit for bit to the
+   single-device runs; (b) at world ``DIST_WORLD`` over gloo, spawned
+   ranks all on the card, within ``dryrun.BOUNDS`` of (a)'s single-device
+   runs (the scene's dense BA: its reduced system within
+   ``DIST_SYSTEM_RTOL``) and equal across ranks, joined with a timeout; it
+   prints each run's wall ms (world 4's as four ranks time-sharing one
+   card), the bytes all-reduced a Gauss-Newton iteration and the launches.
 
 Then the card's ``nvidia-smi`` line, one JSON line of per-kernel numbers (the
 level kernel's row with a ``variants`` entry for its depth, prior, row-block
 and tile variants; each kernel's with a ``strides`` entry for its
 runtime-stride variant at strides 3 and 4, its ``cli_launches``, its
-``slam_launches``, its ``mapping_launches``, its ``sparse_launches`` and its
-``train_launches``),
+``slam_launches``, its ``mapping_launches``, its ``sparse_launches``, its
+``train_launches`` and its ``distributed_launches``),
 and last ``{"ok": true,
 "device": {...}}``.  A failed check raises and exits
 non-zero before that line; without a GPU the script exits non-zero at once.
@@ -2479,6 +2494,283 @@ def run_train(dev, root: Path, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the multi-device back end (torch.distributed).
+# ---------------------------------------------------------------------------
+
+# (a) runs these over a world of one rank (NCCL, in this process) at phase 4's
+# B=64, and (b) over DIST_WORLD spawned ranks (gloo: the only way to run
+# several ranks on one card) that all drive cuda:0: 16 pairs a rank.
+DIST_CONFIGS = ("tpu_fast", "slam_tiles_cb48", "parity_esm")
+DIST_WORLD = 4
+# The pose graph: the chain of the first 63 tracked tpu_fast transforms (64
+# poses) and a loop edge every 4 poses to the pose 8 on, each off the chain
+# by a seeded twist of scale 1e-3.
+DIST_LOOPS = tuple((t, t + 8) for t in range(0, 56, 4))
+DIST_GRAPH_ITERS = 10
+# The dense BA: BASELINE config 4's 8-keyframe window at phase 6 (c)'s scale,
+# every second frame of the scene, the true poses but pose 0 moved by a
+# seeded perturbation (DIST_BA_NOISE_M of translation, a tenth of it in rad).
+DIST_BA_KEYFRAMES = tuple(range(0, 16, 2))
+DIST_BA_STRIDE, DIST_BA_WINDOW, DIST_BA_ITERS = 8, 2, 8
+DIST_BA_NOISE_M = 0.004
+# That reduced pose system is ill-conditioned in float32 (its rotation
+# columns are zero, as the JAX package's are, and only the damping holds
+# them): a sum taken in another order moves its step by ~1e-2 of itself, and
+# the Huber weights and validity tests amplify that over the iterations.  So
+# at world DIST_WORLD the scene's reduced system is held to the single-device
+# one within DIST_SYSTEM_RTOL of each array's largest entry (float32 sums in
+# another order), its 8-iteration result is reported beside the
+# single-device run's own response to its poses moved by DIST_BA_NUDGE_M,
+# and the JAX package's bounds (``dryrun.BOUNDS``) hold the dense BA on the
+# JAX package's own sharded test problem (``planar_ba_problem``).
+DIST_SYSTEM_RTOL = 1e-5
+DIST_BA_NUDGE_M = 1e-7
+DIST_REPEATS = 3  # timed runs of each world-1 check
+DIST_TIMEOUT_S = 300.0
+
+
+def dist_inputs(frames, poses, k_dev, grays, depths, k_np, dev) -> dict:
+    """Phase 10's inputs on ``dev``: phase 4's B=64 rows of the 15 pairs,
+    the pose graph over their tracked chain and the dense BA problem."""
+    from dense_visual_odometry_torch.models.dense_ba import build_dense_ba_data
+    from dense_visual_odometry_torch.parallel.dryrun import chain_graph
+
+    pairs = [(i, i + 1) for i in range(N_FRAMES - 1)]
+    rows = (pairs * (-(-MAIN_BATCH // len(pairs))))[:MAIN_BATCH]
+    prev, curr, _ = batch_inputs(frames, poses, rows, dev, False)
+    chain = batched_track_pair(prev, curr, k_dev, config("tpu_fast")).transform[:-1]
+    graph = chain_graph(chain, DIST_LOOPS, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    kf_poses = np.stack([poses[i] for i in DIST_BA_KEYFRAMES]).astype(np.float32)
+    for t in range(1, len(DIST_BA_KEYFRAMES)):
+        twist = np.concatenate([rng.normal(size=3) * DIST_BA_NOISE_M,
+                                rng.normal(size=3) * DIST_BA_NOISE_M / 10])
+        kf_poses[t] = se3.exp(torch.tensor(twist, dtype=torch.float32)).numpy() @ kf_poses[t]
+    data = build_dense_ba_data([grays[i] for i in DIST_BA_KEYFRAMES],
+                               [depths[i] for i in DIST_BA_KEYFRAMES], k_np,
+                               grid_stride=DIST_BA_STRIDE, window=DIST_BA_WINDOW, device=dev)
+    return {"prev": prev, "curr": curr, "k": k_dev, "graph": graph,
+            "ba": {"scene": (torch.tensor(kf_poses, device=dev), data),
+                   "planar": planar_ba_problem(dev)}}
+
+
+def planar_ba_problem(dev):
+    """The JAX package's sharded dense BA test problem
+    (``tests/unit/test_dense_ba.py``: ``test_sharded_matches_single_device``):
+    8 keyframes of a textured plane at 2 m, 48x64, the camera stepping 1.5 cm
+    in x, grid stride 6, every pose but the first moved by up to 5 mm in x
+    -> (poses, data)."""
+    from dense_visual_odometry_torch.models.dense_ba import build_dense_ba_data
+
+    h, w, fx, z0, tx, k = 48, 64, 60.0, 2.0, 0.015, 8
+    k_mat = np.array([[fx, 0.0, (w - 1) / 2], [0.0, fx, (h - 1) / 2], [0.0, 0.0, 1.0]],
+                     np.float32)
+    v, u = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64),
+                       indexing="ij")
+    shift = fx * tx / z0
+    grays, poses = [], []
+    for i in range(k):
+        ui = u - i * shift
+        grays.append((120.0 + 45.0 * np.sin(2 * np.pi * ui / 23.0)
+                      + 35.0 * np.cos(2 * np.pi * v / 17.0)
+                      + 20.0 * np.sin(2 * np.pi * (ui + 2 * v) / 41.0)).astype(np.float32))
+        pose = np.eye(4)
+        pose[0, 3] = -i * tx
+        poses.append(pose)
+    poses = np.stack(poses)
+    poses[1:, 0, 3] += np.random.default_rng(1).uniform(-0.005, 0.005, size=k - 1)
+    data = build_dense_ba_data(grays, [np.full((h, w), z0, np.float32)] * k, k_mat,
+                               grid_stride=6, device=dev)
+    return torch.tensor(poses, dtype=torch.float32, device=dev), data
+
+
+def _to(tree, dev):
+    """Every tensor of nested dicts, tuples and NamedTuples moved to ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to(x, dev) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(x, dev) for x in tree)
+    return tree
+
+
+def _dist_run(dev, inputs, single, repeats, unheld=()):
+    """This rank's dry run on ``dev``, its launch counts zeroed just before
+    and read just after."""
+    from dense_visual_odometry_torch.models.dense_ba import DenseBAConfig
+    from dense_visual_odometry_torch.parallel import make_mesh
+    from dense_visual_odometry_torch.parallel.dryrun import dryrun_multichip
+
+    mesh = make_mesh(dev.type)
+    configs = {name: config(name) for name in DIST_CONFIGS}
+    zero_launches()
+    run = dryrun_multichip(mesh, inputs["prev"], inputs["curr"], inputs["k"], configs,
+                           inputs["graph"], inputs["ba"], DIST_GRAPH_ITERS,
+                           DenseBAConfig(max_iterations=DIST_BA_ITERS), single=single,
+                           repeats=repeats, unheld=unheld)
+    launches, _ = read_launches()
+    return run, launches
+
+
+def _dist_rank(rank, world, inputs, single, device_type):
+    """Phase 10 (b): one spawned rank, on the card's first device."""
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    from dense_visual_odometry_torch.models.dense_ba import DenseBAConfig, reduced_system_sharded
+    from dense_visual_odometry_torch.parallel import make_mesh
+
+    inputs = _to(inputs, dev)
+    run, launches = _dist_run(dev, inputs, _to(single, dev), 1, unheld=("dense_ba_scene",))
+    system = reduced_system_sharded(make_mesh(dev.type), *inputs["ba"]["scene"],
+                                    DenseBAConfig(max_iterations=DIST_BA_ITERS))
+    return {"sharded": _to(run.sharded, "cpu"), "errors": run.errors, "wall_ms": run.wall_ms,
+            "launches": launches, "scene_system": _to(system, "cpu")}
+
+
+def _results_equal(a, b) -> bool:
+    """Every tensor of two results equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+    return all(_results_equal(x, y) for x, y in zip(a, b))
+
+
+def run_distributed(frames, poses, k_dev, grays, depths, k_np, dev, smi) -> dict:
+    """Phase 10 on ``dev``: the dry run of the multi-device back end
+    (``parallel.dryrun``: sharded tracking under DIST_CONFIGS, the
+    edge-sharded pose graph, the owner-sharded dense BA on the scene and on
+    ``planar_ba_problem``), (a) at world 1 over NCCL (gloo on the CPU) in
+    this process, equal bit for bit to the single-device runs, with its own
+    launch counts; (b) at world DIST_WORLD over gloo, spawned ranks all on
+    ``dev``, within ``dryrun.BOUNDS`` of (a)'s single-device runs but for
+    the scene's dense BA (see DIST_SYSTEM_RTOL), and equal across ranks.
+    Raises on any failed check."""
+    import torch.distributed as dist
+
+    from dense_visual_odometry_torch.models.dense_ba import (
+        DenseBAConfig,
+        build_reduced_system,
+        optimize_dense_ba,
+    )
+    from dense_visual_odometry_torch.parallel.distributed import default_backend, spawn_ranks
+    from dense_visual_odometry_torch.parallel.dryrun import single_device
+
+    out = {"phase": "distributed", "image": [HEIGHT, WIDTH], "batch": MAIN_BATCH,
+           "configs": list(DIST_CONFIGS), "world": DIST_WORLD}
+    t_phase = time.perf_counter()
+    inputs = dist_inputs(frames, poses, k_dev, grays, depths, k_np, dev)
+    configs = {name: config(name) for name in DIST_CONFIGS}
+    ba_cfg = DenseBAConfig(max_iterations=DIST_BA_ITERS)
+    single, single_ms = single_device(
+        inputs["prev"], inputs["curr"], inputs["k"], configs, inputs["graph"], inputs["ba"],
+        DIST_GRAPH_ITERS, ba_cfg, repeats=DIST_REPEATS)
+    scene_poses, scene_data = inputs["ba"]["scene"]
+    scene_system = build_reduced_system(scene_poses, scene_data.inv_depth0, scene_data,
+                                        ba_cfg)[:3]
+    nudged_poses = scene_poses.clone()
+    nudged_poses[1:, :3, 3] += DIST_BA_NUDGE_M
+    nudged = optimize_dense_ba(nudged_poses, scene_data, ba_cfg)
+    ref = single["dense_ba_scene"]
+    out["scene_ba_nudged"] = {
+        "nudge_m": DIST_BA_NUDGE_M,
+        "ba_poses": float((nudged.poses - ref.poses).abs().max()),
+        "ba_inv_depth": float((nudged.inv_depth - ref.inv_depth).abs().max()),
+        "ba_chi2_rel": abs(float(nudged.chi2) - float(ref.chi2)) / abs(float(ref.chi2)),
+    }
+
+    # (a) world 1 in this process.
+    with tempfile.TemporaryDirectory(prefix="dvo_dist_") as tmp:
+        dist.init_process_group(default_backend(dev), init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            run1, launches = _dist_run(dev, inputs, single, DIST_REPEATS)
+        finally:
+            dist.destroy_process_group()
+    out["world1"] = {
+        "backend": default_backend(dev), "launches": launches, "errors": run1.errors,
+        "bit_equal": {name: _results_equal(run1.sharded[name], single[name])
+                      for name in single},
+        "sharded_ms": {name: w["sharded"] for name, w in run1.wall_ms.items()},
+        "single_ms": single_ms,
+    }
+    # One all_reduce a Gauss-Newton iteration of (chi2, H or A', b or b').
+    sizes = {"pose_graph": inputs["graph"][0].shape[0],
+             **{f"dense_ba_{n}": p.shape[0] for n, (p, _) in inputs["ba"].items()}}
+    out["all_reduce_bytes_per_iteration"] = {
+        name: {"H": k * k * 36 * 4, "rhs": k * 6 * 4, "chi2": 4,
+               "total": (1 + k * k * 36 + k * 6) * 4}
+        for name, k in sizes.items()}
+    out["pose_graph"] = {"poses": sizes["pose_graph"],
+                         "edges": int(inputs["graph"][1].i.shape[0]),
+                         "iterations": int(single["pose_graph"].iterations)}
+    out["dense_ba"] = {n: {"keyframes": p.shape[0], "grid_points": int(d.grid_u.shape[0])}
+                       for n, (p, d) in inputs["ba"].items()}
+
+    # (b) DIST_WORLD spawned ranks over gloo, all on dev.
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_dist_rank, DIST_WORLD,
+                        (_to(inputs, "cpu"), _to(single, "cpu"), dev.type),
+                        backend="gloo", timeout_s=DIST_TIMEOUT_S)
+    system_err = {
+        name: max(float((r["scene_system"][i] - want.cpu()).abs().max()) for r in ranks)
+        / float(want.abs().max())
+        for i, (name, want) in enumerate(zip(("chi2", "A", "b"), scene_system))}
+    out["world4"] = {
+        "backend": "gloo", "device": str(dev), "spawn_s": time.perf_counter() - t0,
+        "max_errors": {check: {f: max(r["errors"][check][f] for r in ranks)
+                               for f in ranks[0]["errors"][check]}
+                       for check in ranks[0]["errors"]},
+        "scene_system_rel_err": system_err,
+        "ranks_equal": {name: all(_results_equal(r["sharded"][name], ranks[0]["sharded"][name])
+                                  for r in ranks) for name in single},
+        "sharded_ms_time_shared": [{n: w["sharded"] for n, w in r["wall_ms"].items()}
+                                   for r in ranks],
+        "launches": [r["launches"] for r in ranks],
+    }
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+
+    w1, w4 = out["world1"], out["world4"]
+    for name in single:
+        print(f"distributed {name}: world 1 ({w1['backend']}) {w1['sharded_ms'][name]} ms "
+              f"against single-device {single_ms[name]} ms (overhead "
+              f"{w1['sharded_ms'][name] - single_ms[name]} ms) [{smi}]", flush=True)
+    for name in single:
+        print(f"distributed {name}: world {DIST_WORLD} (gloo, {DIST_WORLD} ranks time-sharing "
+              f"one card, not a scaling figure) ms by rank "
+              f"{[r[name] for r in w4['sharded_ms_time_shared']]}", flush=True)
+    print(f"distributed all_reduce bytes per Gauss-Newton iteration: "
+          f"{json.dumps(out['all_reduce_bytes_per_iteration'])}", flush=True)
+    print(f"distributed world {DIST_WORLD} max errors against single-device: "
+          f"{json.dumps(w4['max_errors'])}", flush=True)
+    print(f"distributed scene dense BA: world {DIST_WORLD}'s reduced system within "
+          f"{json.dumps(system_err)} of each array's largest entry; the single-device run "
+          f"moved by {json.dumps(out['scene_ba_nudged'])} when its poses move "
+          f"{DIST_BA_NUDGE_M} m", flush=True)
+    print(f"distributed launches of the port's kernels: world 1 {launches}; world "
+          f"{DIST_WORLD} by rank {w4['launches']}", flush=True)
+    print(f"distributed phase: {out['seconds']} s (spawned world {w4['spawn_s']} s)", flush=True)
+
+    if not all(w1["bit_equal"].values()):
+        raise AssertionError(f"distributed: world 1 is not single-device bit for bit: "
+                             f"{w1['bit_equal']}")
+    if not all(w4["ranks_equal"].values()):
+        raise AssertionError(f"distributed: the ranks' results differ: {w4['ranks_equal']}")
+    if not max(system_err.values()) <= DIST_SYSTEM_RTOL:
+        raise AssertionError(f"distributed: the scene's reduced system parts: {system_err}")
+    scene = w4["max_errors"]["dense_ba_scene"]
+    if not all(np.isfinite(v) for v in scene.values()):
+        raise AssertionError(f"distributed: the scene's dense BA is not finite: {scene}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"distributed: a kernel never launched at world 1: {launches}")
+    return out
+
+
 def zero_launches() -> None:
     """Every launch count of the port's kernels to 0."""
     lm_level.launches = 0
@@ -2718,6 +3010,7 @@ def run(dev: torch.device, smi: str) -> list:
         mapping = run_mapping(dev, Path(tmp), smi)
         sparse = run_sparse(dev, Path(tmp), smi)
         train = run_train(dev, Path(tmp), smi)
+    distributed = run_distributed(frames, poses, k_dev, grays, depths, k_np, dev, smi)
 
     # Per-kernel summary (level-0 cases; times from phase 3).
     def summary(name, source, replaces, check, fields):
@@ -2818,6 +3111,7 @@ def run(dev: torch.device, smi: str) -> list:
         row["mapping_launches"] = mapping["launches"][row["name"]]
         row["sparse_launches"] = sparse["launches"][row["name"]]
         row["train_launches"] = train["launches"][row["name"]]
+        row["distributed_launches"] = distributed["launches"][row["name"]]
     return kernels
 
 

@@ -18,6 +18,12 @@ grid per keyframe it minimizes, over directed keyframe pairs (i -> j),
 - The reduced (6K, 6K) pose system is formed with einsums and
   scatter-adds, solved by a float32 Cholesky, and the depths are recovered
   by back-substitution.  Every iteration stays on the device.
+- Distribution is owner sharding (:func:`optimize_dense_ba_sharded`): each
+  rank holds K/world owners' rows (intensities, depths, validity, targets)
+  while images, the grid, the intrinsics and the poses are replicated; it
+  Schur-reduces its owners' depth blocks, one ``all_reduce`` (SUM) of (chi2,
+  A', b') a Gauss-Newton iteration gives every rank the pose system, and
+  each rank back-substitutes its own depths.
 """
 
 from __future__ import annotations
@@ -27,9 +33,17 @@ from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from dense_visual_odometry_torch.models.posegraph import gauge_prior, solve_normal_system
 from dense_visual_odometry_torch.models.robust import resolve_device
+from dense_visual_odometry_torch.parallel.collectives import (
+    BATCH_AXIS,
+    all_gather_batch,
+    all_reduce_system,
+    mesh_rank,
+)
 from dense_visual_odometry_torch.utils.lie import se3
 
 
@@ -109,13 +123,17 @@ def point_terms(
     inv_depth: torch.Tensor,
     data: DenseBAData,
     cfg: DenseBAConfig,
+    owners: Optional[torch.Tensor] = None,
 ):
     """Every (owner, target, point) residual and its Jacobian row.
 
-    -> r, w (K, M, P); gi, gj (K, M, P, 6); grho (K, M P): the photometric
-    residual, its Huber IRLS weight (0 where invalid), and its derivatives
-    with respect to left-multiplicative perturbations of the owner and
-    target poses and to the owner's inverse depth, at zero perturbation.
+    -> r, w (Ko, M, P); gi, gj (Ko, M, P, 6); grho (Ko, M P): the
+    photometric residual, its Huber IRLS weight (0 where invalid), and its
+    derivatives with respect to left-multiplicative perturbations of the
+    owner and target poses and to the owner's inverse depth, at zero
+    perturbation.  ``data``'s owner rows (and ``inv_depth``) are those of
+    the owners ``owners`` (Ko,) (global indices into ``poses`` (K, 4, 4));
+    None means every keyframe in order (Ko = K).
 
     The JAX package takes this row by reverse-mode AD through ``se3.exp``
     at zero (``dense_ba.py:165``); there ``theta = sqrt(theta_sq)`` has an
@@ -129,9 +147,10 @@ def point_terms(
     k_mat = data.intrinsics
     fx, fy = k_mat[0, 0], k_mat[1, 1]
     cx, cy = k_mat[0, 2], k_mat[1, 2]
-    tgt = torch.clamp(data.targets.long(), min=0)  # (K, M)
+    tgt = torch.clamp(data.targets.long(), min=0)  # (Ko, M)
     kk, m = tgt.shape
     p = data.grid_u.shape[0]
+    owner_poses = poses if owners is None else poses[owners]
 
     rho_t = inv_depth[:, None, :]  # (K, 1, P)
     z = 1.0 / torch.clamp(rho_t, min=1e-6)
@@ -145,8 +164,8 @@ def point_terms(
     x_cam_i = torch.stack([a * z, b * z, z.expand(kk, 1, p)], dim=-1)  # (K, 1, P, 3)
 
     pose_j = poses[tgt]  # (K, M, 4, 4)
-    r_i = poses[:, None, :3, :3].expand(kk, m, 3, 3)
-    t_i = poses[:, None, :3, 3]
+    r_i = owner_poses[:, None, :3, :3].expand(kk, m, 3, 3)
+    t_i = owner_poses[:, None, :3, 3]
     r_j = pose_j[..., :3, :3]
     t_j = pose_j[..., :3, 3]
     x_world = torch.einsum("kab,kpb->kpa", r_i[:, 0], x_cam_i[:, 0])[:, None] + t_i[:, :, None, :]
@@ -193,16 +212,24 @@ def point_terms(
 
 
 def build_reduced_system(
-    poses: torch.Tensor, inv_depth: torch.Tensor, data: DenseBAData, cfg: DenseBAConfig
+    poses: torch.Tensor,
+    inv_depth: torch.Tensor,
+    data: DenseBAData,
+    cfg: DenseBAConfig,
+    owners: Optional[torch.Tensor] = None,
 ):
-    """Linearize and Schur-eliminate every owner's depth block.
+    """Linearize and Schur-eliminate the depth block of each owner of
+    ``data`` (``owners``: as :func:`point_terms`; the JAX package's
+    ``_ShardData.owner_index`` and ``k_total``, K = ``poses.shape[0]``).
 
-    -> (chi2, A' (K, K, 6, 6), b' (K, 6), dinv (K, P), gd (K, P),
-    y (K, P, K, 6)): the reduced pose system and the back-substitution
-    data.  ``y`` is K * P * K * 6 floats (472 MB at K = 64, P = 4,800).
+    -> (chi2, A' (K, K, 6, 6), b' (K, 6), dinv (Ko, P), gd (Ko, P),
+    y (Ko, P, K, 6)): these owners' additive share of the reduced pose
+    system and their back-substitution data.  ``y`` is Ko * P * K * 6
+    floats (472 MB at Ko = K = 64, P = 4,800).
     """
-    r, w, gi, gj, grho = point_terms(poses, inv_depth, data, cfg)
+    r, w, gi, gj, grho = point_terms(poses, inv_depth, data, cfg, owners)
     kk, m, p = r.shape
+    k_total = poses.shape[0]
     dev = r.device
     chi2 = torch.sum(w * r * r)
 
@@ -214,15 +241,16 @@ def build_reduced_system(
     b_i = -torch.einsum("omp,ompi->oi", wr, gi)
     b_j = -torch.einsum("omp,ompi->omi", wr, gj)
 
-    own = torch.arange(kk, device=dev)
+    local = torch.arange(kk, device=dev)
+    own = local if owners is None else owners.long()
     own_m = own[:, None].expand(kk, m)
     tgt = torch.clamp(data.targets.long(), min=0)
-    a = torch.zeros((kk, kk, 6, 6), dtype=torch.float32, device=dev)
+    a = torch.zeros((k_total, k_total, 6, 6), dtype=torch.float32, device=dev)
     a.index_put_((own, own), a_ii, accumulate=True)
     a.index_put_((tgt, tgt), a_jj, accumulate=True)
     a.index_put_((own_m, tgt), a_ij, accumulate=True)
     a.index_put_((tgt, own_m), a_ij.transpose(-1, -2), accumulate=True)
-    bvec = torch.zeros((kk, 6), dtype=torch.float32, device=dev)
+    bvec = torch.zeros((k_total, 6), dtype=torch.float32, device=dev)
     bvec.index_put_((own,), b_i, accumulate=True)
     bvec.index_put_((tgt,), b_j, accumulate=True)
 
@@ -242,9 +270,9 @@ def build_reduced_system(
     wg = w * grho
     y_own = torch.einsum("omp,ompi->opi", wg, gi)
     y_tgt = wg[..., None] * gj
-    y = torch.zeros((kk, kk, p, 6), dtype=torch.float32, device=dev)
-    y.index_put_((own, own), y_own, accumulate=True)
-    y.index_put_((own_m, tgt), y_tgt, accumulate=True)
+    y = torch.zeros((kk, k_total, p, 6), dtype=torch.float32, device=dev)
+    y.index_put_((local, own), y_own, accumulate=True)
+    y.index_put_((local[:, None].expand(kk, m), tgt), y_tgt, accumulate=True)
     y = y.permute(0, 2, 1, 3)
 
     # Schur elimination of the diagonal depth block.
@@ -255,10 +283,16 @@ def build_reduced_system(
     return chi2, a_red, b_red, dinv, gd, y
 
 
-def ba_iteration(poses, inv_depth, data: DenseBAData, cfg: DenseBAConfig):
+def ba_iteration(poses, inv_depth, data: DenseBAData, cfg: DenseBAConfig,
+                 owners: Optional[torch.Tensor] = None, group=None):
     """One Gauss-Newton iteration: linearize, Schur-reduce, solve the poses,
-    back-substitute the depths -> (poses, inv_depth, chi2, ok)."""
-    chi2, a_red, b_red, dinv, gd, y = build_reduced_system(poses, inv_depth, data, cfg)
+    back-substitute the depths -> (poses, inv_depth, chi2, ok).  With a
+    ``group`` (``data`` and ``inv_depth`` holding this rank's ``owners``) the
+    reduced system is summed over its ranks first."""
+    chi2, a_red, b_red, dinv, gd, y = build_reduced_system(
+        poses, inv_depth, data, cfg, owners)
+    if group is not None:
+        chi2, a_red, b_red = all_reduce_system(chi2, a_red, b_red, group)
     gauge = gauge_prior(poses.shape[0], cfg.gauge_weight, poses.device)
     delta_x, ok = solve_normal_system(a_red, b_red, gauge, cfg.pose_damping)
     delta_rho = dinv * (gd - torch.einsum("opki,ki->op", y, delta_x))
@@ -287,6 +321,75 @@ def optimize_dense_ba(
         hist[it] = chi2
     chi2, *_ = build_reduced_system(ps, rho, data, cfg)
     return DenseBAResult(poses=ps, inv_depth=rho, chi2=chi2, chi2_history=hist)
+
+
+def owner_shard(data: DenseBAData, rank: int, world: int):
+    """Rank ``rank``'s contiguous K/world owners of ``data`` -> (the data
+    with their rows alone, their global indices); raises ``ValueError``
+    unless K divides the ranks."""
+    k = data.intensity.shape[0]
+    if k % world:
+        raise ValueError(f"keyframes ({k}) must divide the ranks ({world})")
+    ko = k // world
+    sl = slice(rank * ko, (rank + 1) * ko)
+    shard = data._replace(
+        intensity=data.intensity[sl], inv_depth0=data.inv_depth0[sl],
+        valid=data.valid[sl], targets=data.targets[sl],
+        target_valid=data.target_valid[sl],
+    )
+    return shard, torch.arange(rank * ko, (rank + 1) * ko, device=data.intensity.device)
+
+
+def reduced_system_sharded(
+    mesh: DeviceMesh,
+    poses: torch.Tensor,
+    data: DenseBAData,
+    cfg: DenseBAConfig = DenseBAConfig(),
+    axis_name: str = BATCH_AXIS,
+):
+    """The reduced pose system (chi2, A', b') at ``poses`` and the measured
+    depths, each rank reducing its owners and one ``all_reduce`` summing
+    them: what :func:`build_reduced_system` gives on one device, summed in
+    another order."""
+    rank, world, group = mesh_rank(mesh, axis_name)
+    shard, owners = owner_shard(data, rank, world)
+    chi2, a_red, b_red, *_ = build_reduced_system(poses, shard.inv_depth0, shard, cfg, owners)
+    return all_reduce_system(chi2, a_red, b_red, group)
+
+
+def optimize_dense_ba_sharded(
+    mesh: DeviceMesh,
+    poses: torch.Tensor,
+    data: DenseBAData,
+    cfg: DenseBAConfig = DenseBAConfig(),
+    axis_name: str = BATCH_AXIS,
+) -> DenseBAResult:
+    """:func:`optimize_dense_ba` with the owners sharded over ``mesh``:
+    every rank passes the whole problem, keeps its contiguous K/world
+    owners' rows (:func:`owner_shard`), and returns the whole result (poses
+    replicated, the inverse depths all-gathered to (K, P)).  One
+    ``all_reduce`` of the reduced pose system a Gauss-Newton iteration, and
+    one of the final chi2.  K must divide the ranks (pad with zero-valid
+    owners upstream).  Every rank of the mesh must call this together.
+
+    The JAX version turns shard_map's replication check off
+    (``check_vma=False``) because its reverse-mode Jacobians would
+    otherwise sum every device's cotangents; the Jacobians here are closed
+    form (:func:`point_terms`), so nothing needs turning off.
+    """
+    rank, world, group = mesh_rank(mesh, axis_name)
+    shard, owners = owner_shard(data, rank, world)
+    ps = poses.to(device=data.images.device, dtype=torch.float32)
+    rho = shard.inv_depth0
+    hist = torch.full((cfg.max_iterations,), float("inf"), dtype=torch.float32,
+                      device=ps.device)
+    for it in range(cfg.max_iterations):
+        ps, rho, chi2, _ = ba_iteration(ps, rho, shard, cfg, owners, group)
+        hist[it] = chi2
+    chi2 = build_reduced_system(ps, rho, shard, cfg, owners)[0].reshape(1)
+    dist.all_reduce(chi2, op=dist.ReduceOp.SUM, group=group)
+    return DenseBAResult(poses=ps, inv_depth=all_gather_batch(rho, group),
+                         chi2=chi2[0], chi2_history=hist)
 
 
 def build_dense_ba_data(

@@ -19,7 +19,7 @@ photometric Hessian J^T W J).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.autograd.forward_ad as fwad
@@ -158,6 +158,24 @@ def optimize_pose_graph(
         Mahalanobis error (see :func:`build_normal_system`).
     """
     k = poses.shape[0]
+    return gauss_newton(
+        poses, lambda ps: build_normal_system(ps, edges, k, robust_delta),
+        max_iterations, tolerance, gauge_weight, damping,
+    )
+
+
+def gauss_newton(
+    poses: torch.Tensor,
+    system: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    max_iterations: int,
+    tolerance: float,
+    gauge_weight: float,
+    damping: float,
+) -> PoseGraphResult:
+    """The JAX package's fixed-trip loop over ``system(poses) -> (chi2, H,
+    b)``: a failed solve or a chi2 change below ``tolerance`` freezes the
+    poses and the iteration count, with device-side masks (no host read)."""
+    k = poses.shape[0]
     dev = poses.device
     gauge = gauge_prior(k, gauge_weight, dev)
     ps = poses.to(torch.float32)
@@ -166,7 +184,7 @@ def optimize_pose_graph(
     done = torch.zeros((), dtype=torch.bool, device=dev)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
     for _ in range(max_iterations):
-        chi2, hess, rhs = build_normal_system(ps, edges, k, robust_delta)
+        chi2, hess, rhs = system(ps)
         delta, ok = solve_normal_system(hess, rhs, gauge, damping)
         ps = torch.where(done | ~ok, ps, se3.exp(delta) @ ps)
         hist = hist.index_put((it.long().reshape(1),), chi2.reshape(1))
@@ -174,7 +192,7 @@ def optimize_pose_graph(
         new_done = done | ~ok | (torch.abs(prev - chi2) < tolerance)
         it = torch.where(done, it, it + 1)
         done = new_done
-    final_chi2, _, _ = build_normal_system(ps, edges, k, robust_delta)
+    final_chi2, _, _ = system(ps)
     return PoseGraphResult(poses=ps, chi2=final_chi2, chi2_history=hist, iterations=it)
 
 

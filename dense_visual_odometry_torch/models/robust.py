@@ -50,6 +50,25 @@ every level.  Data-dependent control flow (the trigger, loop exits, the
 retrack) reads device values on the host, as ``lax.cond`` /
 ``lax.while_loop`` did inside the JAX program.
 
+A batch sharded over ranks (``track_pair(..., group=...)``, one process per
+device, ``parallel/batched.py``) tracks each rank's slice, but the JAX
+sharded tracker is one global program, so every batch-global decision spans
+all ranks.  These are the collectives, each an ``all_reduce`` with ``MAX``
+over the group, run by every rank the same number of times in the same
+order:
+
+1. the hard-motion trigger of each level that has the fallback
+   (:func:`_solve_level`): any hard element on any rank sends every rank's
+   batch to the gather path;
+2. the retrack's predicate (:func:`track_pair`): if any rank has a "bad"
+   element, every rank runs the second cascade (whose triggers are
+   collectives too), and picks only its own bad elements;
+3. ``LevelDiagnostics.iterations``, the batch maximum, at the end.
+
+The per-level loops need none: each element freezes once done, and a
+loop's trip count is reported only through 3.  Without a group nothing
+changes: no collective and no extra host read.
+
 Every grid stride runs, at every level: the kernels have a variant for
 strides 1 and 2 each and one for every stride >= 3.  ESM gradients on the
 fused path without
@@ -63,6 +82,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dense_visual_odometry_torch.camera import CameraModel
 from dense_visual_odometry_torch.config import RobustDVOConfig
@@ -110,6 +130,16 @@ from dense_visual_odometry_torch.utils.lie import se3
 # Raw ksize-3 Sobel has gain 8 per unit pixel step.
 _SOBEL_GAIN = 8.0
 _FMAX = float(torch.finfo(torch.float32).max)
+
+
+def _any_over_ranks(mask: torch.Tensor, group) -> bool:
+    """``any(mask)`` on the host, over every rank of ``group`` if one is
+    given (one ``all_reduce`` with ``MAX``)."""
+    flag = torch.any(mask)
+    if group is not None:
+        flag = flag.to(torch.int32).reshape(1)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return bool(flag)
 
 
 def _prior_energy(cfg: RobustDVOConfig, log_old: torch.Tensor) -> torch.Tensor:
@@ -619,11 +649,14 @@ def _solve_level(
     want_hessian: bool = False,
     force_hard: Optional[torch.Tensor] = None,
     depth_curr_m: Optional[torch.Tensor] = None,
+    group=None,
 ):
     """One pyramid level for a batch: images (B, H, W), transforms
     (B, 4, 4); ``depth_curr_m`` (B, H, W) the current frame's depth, which
-    the depth term needs.  -> (estimate, diagnostics, Hessian or zeros:
-    photometric plus the depth term, without the prior)."""
+    the depth term needs; ``group`` the process group of a batch sharded
+    over ranks (the trigger is then decided over all of them).  ->
+    (estimate, diagnostics, Hessian or zeros: photometric plus the depth
+    term, without the prior)."""
     if cfg.use_depth_residuals and depth_curr_m is None:
         raise ValueError("use_depth_residuals needs depth_curr_m")
     b = estimate0.shape[0]
@@ -745,9 +778,9 @@ def _solve_level(
         hard0 = fallback_trigger()
         if force_hard is not None:
             hard0 = hard0 | force_hard
-        # One predicate for the whole batch, fixed for the level: a mixed
-        # batch takes the always-correct gather path.
-        need_fb = bool(torch.any(hard0))
+        # One predicate for the whole batch (over every rank), fixed for
+        # the level: a mixed batch takes the always-correct gather path.
+        need_fb = _any_over_ranks(hard0, group)
         if rel_eff is not None:
             rel_eff = rel_eff * torch.where(
                 hard0,
@@ -990,10 +1023,17 @@ def track_pair(
     cfg: RobustDVOConfig,
     init_guess: Optional[torch.Tensor] = None,
     last_transform: Optional[torch.Tensor] = None,
+    group=None,
 ) -> TrackResult:
     """Align each ``curr`` against its ``prev``: pyramids (B, H, W) per
     level on one device; init_guess / last_transform (4, 4) or (B, 4, 4).
-    Runs on the device of the pyramids."""
+    Runs on the device of the pyramids.
+
+    ``group``: the process group over which a batch is sharded, this rank
+    holding its slice.  The batch-global decisions and the iteration counts
+    are then taken over every rank (the module docstring lists the
+    collectives), so each element tracks as in the whole batch on one
+    device; every rank of the group must call this together."""
     dev = prev.gray[0].device
     b = prev.gray[0].shape[0]
     eye = torch.eye(4, dtype=torch.float32, device=dev).expand(b, 4, 4)
@@ -1058,7 +1098,7 @@ def track_pair(
                 prev.gray[level], prev.depth_m[level], curr.gray[level],
                 k_at(level), est, anchor, cfg, level=level,
                 want_hessian=(level == 0), force_hard=force_hard,
-                depth_curr_m=curr.depth_m[level],
+                depth_curr_m=curr.depth_m[level], group=group,
             )
             diags.append(diag)
         stacked = LevelDiagnostics(
@@ -1079,7 +1119,7 @@ def track_pair(
         # Scale-gated retrack from the initial estimate with the hard-motion
         # path forced at every level; results are picked per element.
         bad = stacked.scale[-1] > cfg.retrack_max_scale
-        if bool(torch.any(bad)):
+        if _any_over_ranks(bad, group):
             est2, st2, hess2 = run_cascade(bad)
             pick = bad[:, None, None]
             estimate = torch.where(pick, est2, estimate)
@@ -1090,6 +1130,10 @@ def track_pair(
                 count=torch.where(bad[None], st2.count, stacked.count),
                 scale=torch.where(bad[None], st2.scale, stacked.scale),
             )
+    if group is not None:
+        iterations = stacked.iterations.clone()
+        dist.all_reduce(iterations, op=dist.ReduceOp.MAX, group=group)
+        stacked = stacked._replace(iterations=iterations)
     success = (
         torch.all(torch.isfinite(estimate).reshape(b, -1), dim=-1)
         & torch.isfinite(stacked.error[-1])
@@ -1104,3 +1148,30 @@ def step_pose(pose: torch.Tensor, result: TrackResult) -> torch.Tensor:
     """``pose_t = pose_{t-1} @ transform^-1`` on success, unchanged otherwise."""
     new_pose = pose @ se3.inverse(result.transform)
     return torch.where(result.success[..., None, None], new_pose, pose)
+
+
+def make_tracker(cfg: RobustDVOConfig, device=None):
+    """-> ``run(prev, curr, intrinsics, init_guess=None,
+    last_transform=None)``: :func:`track_pair` under ``cfg`` on ``device``
+    (None = the GPU; asking for it without one raises here).  Pyramids and
+    intrinsics are moved there; an unset guess or anchor is the identity,
+    as the JAX package's tracker passes it (so the init selection runs)."""
+    device = resolve_device(device)
+
+    def run(prev, curr, intrinsics, init_guess=None, last_transform=None):
+        def on_device(frame):
+            return FrameData(tuple(x.to(device) for x in frame.gray),
+                             tuple(x.to(device) for x in frame.depth_m))
+
+        eye = torch.eye(4, dtype=torch.float32, device=device)
+        camera = CameraModel(
+            intrinsics=torch.as_tensor(intrinsics, dtype=torch.float32).to(device),
+            depth_scale=1.0,
+        )
+        return track_pair(
+            on_device(prev), on_device(curr), camera, cfg,
+            init_guess=eye if init_guess is None else init_guess,
+            last_transform=eye if last_transform is None else last_transform,
+        )
+
+    return run

@@ -17,6 +17,19 @@ import torch
 from dense_visual_odometry_torch.config import TWeighterConfig
 
 
+def t_distribution_weights(
+    residuals_sq: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: TWeighterConfig,
+    event_ndim: int = 0,
+    init_lambda: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`t_distribution_weights_with_scale`'s weights alone."""
+    return t_distribution_weights_with_scale(
+        residuals_sq, valid, cfg, event_ndim, init_lambda
+    )[0]
+
+
 def t_distribution_weights_with_scale(
     residuals_sq: torch.Tensor,
     valid: torch.Tensor,
@@ -82,3 +95,11 @@ def huber_weights(
     # A true division (``delta / r`` would multiply by r's reciprocal).
     w = torch.where(r <= delta, torch.ones_like(r), torch.full_like(r, delta) / r)
     return valid.to(torch.float32) * w
+
+
+def weighted_error(
+    residuals_sq: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean weighted squared error over the valid pixels -> (error, count)."""
+    count = torch.sum(valid.to(torch.float32))
+    return torch.sum(weights * residuals_sq) / torch.clamp(count, min=1.0), count

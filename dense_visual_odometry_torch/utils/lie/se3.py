@@ -90,6 +90,19 @@ def log(transform: torch.Tensor) -> torch.Tensor:
     return torch.cat([upsilon, phi], dim=-1)
 
 
+def hat(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) twist (..., 6) -> its (..., 4, 4) matrix [[hat(phi), upsilon], [0, 0]]."""
+    out = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
+    out[..., :3, :3] = so3.hat(xi[..., 3:])
+    out[..., :3, 3] = xi[..., :3]
+    return out
+
+
+def identity(dtype=torch.float32, batch_shape: tuple = (), device=None) -> torch.Tensor:
+    """(*batch_shape, 4, 4) identity transforms."""
+    return torch.eye(4, dtype=dtype, device=device).expand(tuple(batch_shape) + (4, 4))
+
+
 def inverse(transform: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse [R^T, -R^T t]."""
     rot_t = transform[..., :3, :3].transpose(-1, -2)
@@ -100,6 +113,25 @@ def inverse(transform: torch.Tensor) -> torch.Tensor:
 def compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Group product a @ b."""
     return a @ b
+
+
+def transform_points(transform: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Apply SE(3) (..., 4, 4) to (..., N, 3) points."""
+    rot = transform[..., :3, :3]
+    t = transform[..., :3, 3]
+    return torch.einsum("...ij,...nj->...ni", rot, points) + t[..., None, :]
+
+
+def adjoint(transform: torch.Tensor) -> torch.Tensor:
+    """Ad_T (..., 6, 6) for twists (upsilon, phi): [[R, hat(t) @ R], [0, R]],
+    so that exp(Ad_T xi) = T exp(xi) T^-1."""
+    rot = transform[..., :3, :3]
+    out = torch.zeros(transform.shape[:-2] + (6, 6), dtype=transform.dtype,
+                      device=transform.device)
+    out[..., :3, :3] = rot
+    out[..., :3, 3:] = so3.hat(transform[..., :3, 3]) @ rot
+    out[..., 3:, 3:] = rot
+    return out
 
 
 def from_quat_t(quat_wxyz: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,11 @@ def hat(phi: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
+
+
 def _sin_by_theta(theta_sq, theta):
     small = theta_sq < _SMALL_ANGLE**2
     theta_safe = torch.where(small, torch.ones_like(theta), theta)
@@ -121,3 +126,21 @@ def from_quat(q: torch.Tensor) -> torch.Tensor:
         dim=-2,
     )
 
+
+
+def theta(rot: torch.Tensor) -> torch.Tensor:
+    """Rotation angle in [0, pi]."""
+    return torch.linalg.norm(log(rot), dim=-1)
+
+
+def is_rotation_matrix(rot: torch.Tensor, atol: float = 1e-5) -> torch.Tensor:
+    """True where ``rot`` is orthogonal with determinant +1."""
+    eye = torch.eye(3, dtype=rot.dtype, device=rot.device)
+    resid = torch.abs(rot @ rot.transpose(-1, -2) - eye)
+    orth = torch.amax(resid, dim=(-2, -1)) < atol
+    return orth & (torch.abs(torch.linalg.det(rot) - 1.0) < atol)
+
+
+def wrap_angle(angle: torch.Tensor) -> torch.Tensor:
+    """Wrap angle(s) to [-pi, pi)."""
+    return torch.remainder(angle + torch.pi, 2.0 * torch.pi) - torch.pi
