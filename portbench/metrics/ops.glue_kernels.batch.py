@@ -1,0 +1,7 @@
+"""Device kernels a step other than the port's three."""
+
+from portbench.harness import readers
+
+
+def read(record):
+    return readers.glue_kernels(record)

@@ -1,0 +1,7 @@
+"""Level-kernel launches over kernel-eligible levels x steps, in %."""
+
+from portbench.harness import readers
+
+
+def read(record):
+    return readers.level_kernel_share(record)
