@@ -2328,12 +2328,15 @@ def profile_training(data, dev, root: Path) -> dict:
     opt, sched = train_matcher.make_optimizer(model, args.lr, args.steps)
     tensors = train_matcher.upload(data, dev)
     float(train_matcher.train_step(model, opt, sched, tensors, 0, args.fine_weight))  # warm-up
+    profiling.enable_tracing()
     profiling.start_trace(root / "train_trace")
     for i in range(TRAIN_PROFILED_STEPS):
         with profiling.trace_span("train_step"):
             float(train_matcher.train_step(model, opt, sched, tensors, i % args.pairs,
                                            args.fine_weight))
     trace = profiling.stop_trace()
+    profiling.disable_tracing()
+    profiling.drain()
     events = json.loads(trace.read_text())["traceEvents"]
     spans = [e for e in events if e.get("name") == "train_step" and e.get("ph") == "X"
              and e.get("cat") == "user_annotation"]

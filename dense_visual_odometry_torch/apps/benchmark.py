@@ -57,7 +57,9 @@ def parse_args(argv=None):
                         help="device to run on (default: the GPU; cpu runs the kernels' "
                         "plain versions)")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="write a torch.profiler trace (trace.json) into this dir")
+                        help="write a torch.profiler trace (trace.json) into this dir, "
+                             "with the tracer on, so that it holds the program's spans "
+                             "(session.step, track.level, sync.*, ...)")
     parser.add_argument("--pipeline", action="store_true",
                         help="depth-1 pipelined stepping: dispatch frame k+1 before "
                         "reading frame k's pose (poses lag by one frame during the run)")
@@ -206,6 +208,7 @@ def run(args) -> dict:
         sparse_matcher=getattr(args, "sparse_matcher", "zncc"),
     )
     if args.profile_dir:
+        profiling.enable_tracing()
         profiling.start_trace(args.profile_dir)
 
     def host(pose) -> np.ndarray:
@@ -245,6 +248,8 @@ def run(args) -> dict:
         transforms.append(np.linalg.inv(poses[j]) @ poses[j - 1])
     if args.profile_dir:
         logger.info("profiler trace -> %s", profiling.stop_trace())
+        profiling.disable_tracing()
+        profiling.drain()
 
     extra = finalize()
     poses = np.stack(poses)

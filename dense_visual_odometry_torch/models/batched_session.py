@@ -29,6 +29,7 @@ from dense_visual_odometry_torch.models.robust import (
     track_pair,
 )
 from dense_visual_odometry_torch.utils.lie import se3
+from dense_visual_odometry_torch.utils.profiling import trace_span
 
 
 class BatchedSessionState(NamedTuple):
@@ -71,25 +72,26 @@ def batched_session_step(
         state.prev, curr, camera, cfg,
         init_guess=init, last_transform=state.last_transform,
     )
-    curr_usable = torch.sum(curr.depth_m[0] > 0.0, dim=(-2, -1)) >= 16
-    is_first = ~state.initialized
-    transform = torch.where(is_first[:, None, None], eye, result.transform)
-    success = (is_first | result.success) & curr_usable
-    sel = success[:, None, None]
-    new_pose = torch.where(sel, state.pose @ se3.inverse(transform), state.pose)
+    with trace_span("session.commit"):
+        curr_usable = torch.sum(curr.depth_m[0] > 0.0, dim=(-2, -1)) >= 16
+        is_first = ~state.initialized
+        transform = torch.where(is_first[:, None, None], eye, result.transform)
+        success = (is_first | result.success) & curr_usable
+        sel = success[:, None, None]
+        new_pose = torch.where(sel, state.pose @ se3.inverse(transform), state.pose)
 
-    def commit(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-        return torch.where(success.reshape((batch,) + (1,) * (new.ndim - 1)), new, old)
+        def commit(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+            return torch.where(success.reshape((batch,) + (1,) * (new.ndim - 1)), new, old)
 
-    new_state = BatchedSessionState(
-        pose=new_pose,
-        last_transform=torch.where(sel, transform, state.last_transform),
-        prev=FrameData(
-            gray=tuple(commit(n, o) for n, o in zip(curr.gray, state.prev.gray)),
-            depth_m=tuple(commit(n, o) for n, o in zip(curr.depth_m, state.prev.depth_m)),
-        ),
-        initialized=state.initialized | curr_usable,
-    )
+        new_state = BatchedSessionState(
+            pose=new_pose,
+            last_transform=torch.where(sel, transform, state.last_transform),
+            prev=FrameData(
+                gray=tuple(commit(n, o) for n, o in zip(curr.gray, state.prev.gray)),
+                depth_m=tuple(commit(n, o) for n, o in zip(curr.depth_m, state.prev.depth_m)),
+            ),
+            initialized=state.initialized | curr_usable,
+        )
     return new_state, BatchedStepOutput(
         pose=new_pose, transform=transform, success=success, result=result
     )
@@ -147,14 +149,15 @@ class BatchedOdometrySession:
     def step(self, images, depths) -> torch.Tensor:
         """Advance all streams; returns (B, 4, 4) camera-to-world poses."""
         shape = depths.shape if isinstance(depths, torch.Tensor) else np.shape(depths)
-        if self._state is None:
-            b, h, w = shape[0], shape[-2], shape[-1]
-            if self._batch is not None and b != self._batch:
-                raise ValueError(f"expected batch {self._batch}, got {b}")
-            self._state = init_batched_state(b, h, w, self.config.levels, device=self.device)
-        self._state, out = batched_session_step(
-            self._state, images, depths, self.camera, self.config
-        )
+        with trace_span("session.step", streams=shape[0]):
+            if self._state is None:
+                b, h, w = shape[0], shape[-2], shape[-1]
+                if self._batch is not None and b != self._batch:
+                    raise ValueError(f"expected batch {self._batch}, got {b}")
+                self._state = init_batched_state(b, h, w, self.config.levels, device=self.device)
+            self._state, out = batched_session_step(
+                self._state, images, depths, self.camera, self.config
+            )
         self.last_output = out
         return out.pose
 

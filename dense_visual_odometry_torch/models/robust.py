@@ -69,6 +69,17 @@ The per-level loops need none: each element freezes once done, and a
 loop's trip count is reported only through 3.  Without a group nothing
 changes: no collective and no extra host read.
 
+With the tracer on (``utils/profiling.py``) the tracker records spans at
+its boundaries (``frame.upload``, ``frame.pyramid``, ``track.pair``,
+``track.init``, ``track.cascade``, one ``track.level`` a level with its
+``path``, ``level.inputs``, ``level.solve``, ``level.hessian``) and around
+each host read (``sync.loop``, ``sync.solve``, ``sync.trigger``,
+``sync.retrack``), and counts levels by path, the trigger's terms, the
+gather path's stream-levels, the retracks and the loops' iterations.  The
+per-stream counts come back in the read that the trigger or the retrack
+makes anyway (a small integer tensor in place of the flag), so tracing adds
+no host read and no collective, and every decision is the same.
+
 Every grid stride runs, at every level: the kernels have a variant for
 strides 1 and 2 each and one for every stride >= 3.  ESM gradients on the
 fused path without
@@ -126,20 +137,55 @@ from dense_visual_odometry_torch.ops.shiftwarp import (
     shift_coverage,
 )
 from dense_visual_odometry_torch.utils.lie import se3
+from dense_visual_odometry_torch.utils.profiling import count as trace_count
+from dense_visual_odometry_torch.utils.profiling import trace_span, tracing
 
 # Raw ksize-3 Sobel has gain 8 per unit pixel step.
 _SOBEL_GAIN = 8.0
 _FMAX = float(torch.finfo(torch.float32).max)
 
 
-def _any_over_ranks(mask: torch.Tensor, group) -> bool:
-    """``any(mask)`` on the host, over every rank of ``group`` if one is
+def _flag_over_ranks(mask: torch.Tensor, group) -> torch.Tensor:
+    """``any(mask)`` on the device, over every rank of ``group`` if one is
     given (one ``all_reduce`` with ``MAX``)."""
     flag = torch.any(mask)
     if group is not None:
         flag = flag.to(torch.int32).reshape(1)
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
-    return bool(flag)
+    return flag
+
+
+def _any_over_ranks(mask: torch.Tensor, group) -> bool:
+    """``any(mask)`` on the host, over every rank of ``group`` if one is
+    given."""
+    return bool(_flag_over_ranks(mask, group))
+
+
+def _any_over_ranks_counted(mask: torch.Tensor, group, counts) -> Tuple[bool, list]:
+    """:func:`_any_over_ranks`, and the values of ``counts`` (integer
+    scalars: the tracer's, this rank's own) read back in the same host
+    read."""
+    flag = _flag_over_ranks(mask, group).reshape(()).to(torch.int64)
+    values = torch.stack([flag] + [c.to(torch.int64) for c in counts]).tolist()
+    return bool(values[0]), values[1:]
+
+
+def _count_trigger(need_fb: bool, b: int, counts: list, first: bool) -> None:
+    """The tracer's counters of one level's trigger, from ``counts`` as
+    read: the streams whose own result needs the gather path, then those
+    each term flagged (coverage, rotation, displacement).  ``first``: the
+    level is in the first cascade, not the retrack's (whose every level
+    takes the gather path by force)."""
+    kept, coverage, rotation, displacement = counts
+    if first:
+        trace_count("stream_levels.hard.coverage", coverage)
+        trace_count("stream_levels.hard.rotation", rotation)
+        trace_count("stream_levels.hard.displacement", displacement)
+        if need_fb:
+            trace_count("levels.gather")
+    if need_fb:
+        trace_count("stream_levels.gather", b)
+        trace_count("stream_levels.gather_kept", kept)
 
 
 def _prior_energy(cfg: RobustDVOConfig, log_old: torch.Tensor) -> torch.Tensor:
@@ -210,20 +256,22 @@ def preprocess_frame(
     """Color (..., H, W, 3) or gray (..., H, W) + raw depth DN -> pyramids
     on ``device`` (None = the GPU)."""
     device = resolve_device(device)
-    color_or_gray = as_device_tensor(color_or_gray, device)
-    depth_raw = as_device_tensor(depth_raw, device)
-    is_rgb = (
-        color_or_gray.ndim == depth_raw.ndim + 1 and color_or_gray.shape[-1] == 3
-    )
-    if is_rgb:
-        gray = pyr_ops.rgb_to_gray(color_or_gray, quantize=quantize)
-    else:
-        gray = color_or_gray.to(torch.float32)
-    depth_m = pyr_ops.preprocess_depth(depth_raw, camera.depth_scale, max_distance)
-    return FrameData(
-        gray=pyr_ops.build_pyramid(gray, levels),
-        depth_m=pyr_ops.build_pyramid(depth_m, levels),
-    )
+    with trace_span("frame.upload"):
+        color_or_gray = as_device_tensor(color_or_gray, device)
+        depth_raw = as_device_tensor(depth_raw, device)
+    with trace_span("frame.pyramid"):
+        is_rgb = (
+            color_or_gray.ndim == depth_raw.ndim + 1 and color_or_gray.shape[-1] == 3
+        )
+        if is_rgb:
+            gray = pyr_ops.rgb_to_gray(color_or_gray, quantize=quantize)
+        else:
+            gray = color_or_gray.to(torch.float32)
+        depth_m = pyr_ops.preprocess_depth(depth_raw, camera.depth_scale, max_distance)
+        return FrameData(
+            gray=pyr_ops.build_pyramid(gray, levels),
+            depth_m=pyr_ops.build_pyramid(depth_m, levels),
+        )
 
 
 def frame_data_from_numpy(frame, device) -> FrameData:
@@ -320,7 +368,11 @@ def _lm_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
     )
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     it = 0
-    while it < max_iterations and bool(torch.any(~done)):
+    while it < max_iterations:
+        with trace_span("sync.loop"):
+            running = bool(torch.any(~done))
+        if not running:
+            break
         hess, rhs, err, count, _photo, wlam = evaluate(est_try, anchor_try, wlam)
         ok_eval = torch.isfinite(err) & (count >= 6.0)
         active = ~done
@@ -345,7 +397,8 @@ def _lm_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
             + lm_lambda[:, None, None] * (hess_acc * eye6)
             + floor[:, None, None] * eye6
         )
-        delta = torch.linalg.solve(damped, rhs_acc[..., None])[..., 0]
+        with trace_span("sync.solve"):
+            delta = torch.linalg.solve(damped, rhs_acc[..., None])[..., 0]
         ok = torch.all(torch.isfinite(delta), dim=-1) & (count_acc >= 6.0)
         delta = torch.where(ok[:, None], delta, torch.zeros_like(delta))
 
@@ -365,6 +418,7 @@ def _lm_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
         est_try = torch.where(move, inc @ est_acc, est_acc)
         anchor_try = torch.where(move, inc_inv @ anchor_acc, anchor_acc)
         it += 1
+    trace_count("loop.iterations", it)
     diag = LevelDiagnostics(
         iterations=torch.tensor(it, dtype=torch.int32, device=dev),
         error=err_acc,
@@ -601,11 +655,16 @@ def _gn_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
     inc_count = torch.zeros((b,), dtype=torch.int32, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     it = 0
-    while it < max_iterations and bool(torch.any(~done)):
+    while it < max_iterations:
+        with trace_span("sync.loop"):
+            running = bool(torch.any(~done))
+        if not running:
+            break
         hess, rhs, err, count, _photo, wlam = evaluate(estimate, anchor, wlam)
         # 6x6 solve with a tiny Tikhonov floor for a rank-deficient H.
         damp = 1e-8 * (1.0 + torch.diagonal(hess, dim1=-2, dim2=-1).sum(-1))
-        delta = torch.linalg.solve(hess + damp[:, None, None] * eye6, rhs[..., None])[..., 0]
+        with trace_span("sync.solve"):
+            delta = torch.linalg.solve(hess + damp[:, None, None] * eye6, rhs[..., None])[..., 0]
         ok = torch.all(torch.isfinite(delta), dim=-1) & (count >= 6.0)
         delta = torch.where(ok[:, None], delta, torch.zeros_like(delta))
         inc = se3.exp(delta)
@@ -628,6 +687,7 @@ def _gn_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
         err_last = torch.where(active, err, err_last)
         count_last = torch.where(active, count, count_last)
         it += 1
+    trace_count("loop.iterations", it)
     diag = LevelDiagnostics(
         iterations=torch.tensor(it, dtype=torch.int32, device=dev),
         error=err_last,
@@ -657,337 +717,374 @@ def _solve_level(
     over ranks (the trigger is then decided over all of them).  ->
     (estimate, diagnostics, Hessian or zeros: photometric plus the depth
     term, without the prior)."""
-    if cfg.use_depth_residuals and depth_curr_m is None:
-        raise ValueError("use_depth_residuals needs depth_curr_m")
-    b = estimate0.shape[0]
-    dev = estimate0.device
-    plan = level_plan(cfg, level)
-    stride = plan.stride
-    radius = cfg.shift_stack_radius
-    approx = cfg.approximate_image2_gradient
-    sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
-    illum_bias = cfg.illumination == "bias"
-    illum_affine = cfg.illumination == "affine"
-    image_h, image_w = gray_curr.shape[-2], gray_curr.shape[-1]
-    gray_prev_full, depth_prev_full = gray_prev, depth_prev_m
+    with trace_span("track.level", level=level) as level_span:
+        if cfg.use_depth_residuals and depth_curr_m is None:
+            raise ValueError("use_depth_residuals needs depth_curr_m")
+        b = estimate0.shape[0]
+        dev = estimate0.device
+        plan = level_plan(cfg, level)
+        stride = plan.stride
+        radius = cfg.shift_stack_radius
+        approx = cfg.approximate_image2_gradient
+        sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
+        illum_bias = cfg.illumination == "bias"
+        illum_affine = cfg.illumination == "affine"
+        image_h, image_w = gray_curr.shape[-2], gray_curr.shape[-1]
+        gray_prev_full, depth_prev_full = gray_prev, depth_prev_m
 
-    # Estimate-independent inputs, once per level.
-    fl = None  # the frozen window and the fused kernels' Jacobian planes
-    jac_planes = None  # (B, 6, H', W') of the fused kernels
-    pre_jac = None  # (B, H', W', 6) of the other evaluations
-    grads = None  # exact mode: the current image's gradients
-    if plan.frozen:
-        fl = frozen_level(
-            gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level,
-            depth_curr=depth_curr_m if cfg.use_depth_residuals else None,
-        )
-        gray_prev, depth_prev_m, jac_planes = fl.gray_prev, fl.depth_prev_m, fl.jac_planes
-    else:
-        gray_prev = gray_prev_full[..., ::stride, ::stride].contiguous()
-        depth_prev_m = depth_prev_full[..., ::stride, ::stride].contiguous()
-    hp, wp = gray_prev.shape[-2], gray_prev.shape[-1]
-    grads_z = None  # the previous depth's gradients on the strided grid
-    if cfg.use_depth_residuals:
-        # Always divided by the Sobel gain, raw_sobel_gain or not, as in the
-        # JAX package: d(depth)/d(full-resolution pixel) at the grid points.
-        gzx, gzy = grad_ops.sobel(depth_prev_full)
-        grads_z = (
-            (gzx / _SOBEL_GAIN)[..., ::stride, ::stride],
-            (gzy / _SOBEL_GAIN)[..., ::stride, ::stride],
-        )
-    if not approx:
-        gx2, gy2 = grad_ops.sobel(gray_curr)
-        grads = (gx2 / sgain, gy2 / sgain)
-    elif fl is None or illum_affine:
-        # ESM at a fused level averages into the frozen window's planes
-        # (the configuration requires the frozen window there); affine's
-        # "shift" Jacobian is the template's own.
-        g1x_s, g1y_s = _template_gradients(
-            gray_prev_full, depth_prev_full, gray_curr, intrinsics, estimate0, cfg,
-            level, esm=plan.esm and not plan.fused,
-        )
-        if not plan.fused or illum_affine:
-            # Affine's "shift" evaluations take the template's own Jacobian,
-            # without ESM's average, beside the level kernel's planes.
-            pre_jac = approximate_jacobian(
-                depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
-            )
-        if plan.default_mode == "fused" and fl is None:
-            jac_planes = approximate_jacobian_planes(
-                depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
-            )
-    # The packed image of the "packed" mode (the fallback packs its own).
-    gray_curr_packed = (
-        interp_ops.pack_neighbors(gray_curr) if plan.default_mode == "packed" else None
-    )
-    grads_packed = (
-        interp_ops.pack_pair_f16(*grads)
-        if grads is not None and (cfg.packed_sampling or plan.shift_stack)
-        else None
-    )
-
-    def fallback_trigger():
-        """-> per-element hard-motion flags at the level's start: shift-ball
-        coverage, and with the template's Jacobian the rotation angle and,
-        at the coarsest level, the RMS displacement."""
-        if fl is not None:
-            u0, v0, vg0 = fl.u0, fl.v0, fl.valid_geom0
-        else:
-            _, u0, v0, vg0 = warp_geometry(depth_prev_m, intrinsics, estimate0, stride)
-        r = radius if radius is not None else 4
-        # The coverage of the centres the level will use.
-        ba = block_args(cfg, plan)
-        if plan.tiles:
-            cov = shift_coverage_tiles(
-                u0, v0, r, stride, ba["n_blocks"], ba["n_blocks_x"], vg0,
-                radius_y=ba["radius_y"], center_bound=cfg.recenter_center_bound,
-            )
-        elif plan.blocks:
-            cov = shift_coverage_blocks(u0, v0, r, stride, ba["n_blocks"], vg0,
-                                        radius_y=ba["radius_y"])
-        else:
-            cov = shift_coverage(u0, v0, r, stride, coord_mask=vg0)
-        hard = cov < cfg.shift_fallback_min_coverage
-        if not approx:
-            return hard
-        rot = estimate0[:, :3, :3]
-        cos_t = 0.5 * (torch.diagonal(rot, dim1=-2, dim2=-1).sum(-1) - 1.0)
-        theta = torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
-        # ESM's Jacobian is half evaluated at the level-start warp, so a
-        # relaxed rotation threshold may apply there.
-        max_rot = (
-            cfg.esm_fallback_max_rotation
-            if plan.esm and cfg.esm_fallback_max_rotation is not None
-            else cfg.fallback_max_rotation
-        )
-        hard = hard | (theta > max_rot)
-        if level == cfg.levels - 1:
-            col = torch.arange(wp, dtype=torch.float32, device=dev) * stride
-            row = torch.arange(hp, dtype=torch.float32, device=dev) * stride
-            du = u0 - col[None, :]
-            dv = v0 - row[:, None]
-            mf = vg0.to(torch.float32)
-            denom = torch.clamp(torch.sum(mf, dim=(-2, -1)), min=1.0)
-            rms = torch.sqrt(torch.sum((du * du + dv * dv) * mf, dim=(-2, -1)) / denom)
-            hard = hard | (rms > cfg.fallback_max_displacement)
-        return hard
-
-    rel_eff = cfg.relative_tolerance
-    need_fb = False
-    if plan.fallback:
-        hard0 = fallback_trigger()
-        if force_hard is not None:
-            hard0 = hard0 | force_hard
-        # One predicate for the whole batch (over every rank), fixed for
-        # the level: a mixed batch takes the always-correct gather path.
-        need_fb = _any_over_ranks(hard0, group)
-        if rel_eff is not None:
-            rel_eff = rel_eff * torch.where(
-                hard0,
-                torch.tensor(cfg.fallback_tolerance_scale, device=dev),
-                torch.tensor(1.0, device=dev),
-            )
-
-    wlam_init = torch.full(
-        (b,), 1.0 / (cfg.weighter.initial_sigma**2), dtype=torch.float32, device=dev
-    )
-    level_in = None  # the fused kernels' inputs (LevelInputs), built once
-    # The fused kernel reads one window centre: a level of blocks or tiles
-    # recentres it at each evaluated estimate, as the JAX package does there
-    # (its frozen window is None; JAX robust.py:811-812, :578).
-    one_window = fl is not None and not (plan.blocks or plan.tiles)
-
-    def fused_inputs(estimate) -> LevelInputs:
-        """The fused kernel's inputs for an evaluation of ``estimate``: the
-        frozen window, or (``freeze_shift_window`` off, or blocks or tiles)
-        the window recentred at ``estimate``."""
-        nonlocal level_in
-        if level_in is None:
-            zero = torch.zeros((b,), dtype=torch.int32, device=dev)
-            cu, cv = (fl.cu, fl.cv) if one_window else (zero, zero)
-            points, scal = level_inputs(
-                cu, cv, depth_prev_m, intrinsics, estimate0, prior_anchor0, wlam_init,
-                None, stride,
-            )
-            level_in = LevelInputs(
-                fl.planes if one_window else None, points, gray_prev, jac_planes, scal
-            )
-        if one_window:
-            return level_in
-        _, u, v, vg = warp_geometry(depth_prev_m, intrinsics, estimate, stride)
-        cu, cv = compute_recenter(u, v, radius, stride, vg)
-        planes = extract_parity_planes(gray_curr, cu, cv, hp, wp, radius, stride)
-        return with_window(level_in, planes, cu, cv)
-
-    def reduce_evaluation(res, jac, valid, weight_lambda):
-        """Illumination pre-fit, IRLS weights, normal equations and the
-        illumination Schur of one evaluation at the strided grid."""
-        tpl_c = None
-        if cfg.illumination is not None:
-            # Remove the best unweighted illumination fit before the robust
-            # weights; the Schur step then eliminates the weighted rest.
-            nv = torch.clamp(valid.sum(dim=(-2, -1)).to(torch.float32), min=1.0)
-            zero = torch.zeros_like(res)
-            mu_r = torch.where(valid, res, zero).sum(dim=(-2, -1)) / nv
-            res = torch.where(valid, res - mu_r[:, None, None], zero)
-            if illum_affine:
-                tpl_mu = torch.where(valid, gray_prev, zero).sum(dim=(-2, -1)) / nv
-                tpl_c = torch.where(valid, gray_prev - tpl_mu[:, None, None], zero)
-                alpha = (tpl_c * res).sum(dim=(-2, -1)) / torch.clamp(
-                    (tpl_c * tpl_c).sum(dim=(-2, -1)), min=1e-6
+        with trace_span("level.inputs"):
+            # Estimate-independent inputs, once per level.
+            fl = None  # the frozen window and the fused kernels' Jacobian planes
+            jac_planes = None  # (B, 6, H', W') of the fused kernels
+            pre_jac = None  # (B, H', W', 6) of the other evaluations
+            grads = None  # exact mode: the current image's gradients
+            if plan.frozen:
+                fl = frozen_level(
+                    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level,
+                    depth_curr=depth_curr_m if cfg.use_depth_residuals else None,
                 )
-                res = res - alpha[:, None, None] * tpl_c
-        if cfg.use_weighter:
-            weights, weight_lambda = t_distribution_weights_with_scale(
-                res * res, valid, cfg.weighter, event_ndim=2,
-                init_lambda=weight_lambda if cfg.weighter.warm_start else None,
+                gray_prev, depth_prev_m, jac_planes = fl.gray_prev, fl.depth_prev_m, fl.jac_planes
+            else:
+                gray_prev = gray_prev_full[..., ::stride, ::stride].contiguous()
+                depth_prev_m = depth_prev_full[..., ::stride, ::stride].contiguous()
+            hp, wp = gray_prev.shape[-2], gray_prev.shape[-1]
+            grads_z = None  # the previous depth's gradients on the strided grid
+            if cfg.use_depth_residuals:
+                # Always divided by the Sobel gain, raw_sobel_gain or not, as in the
+                # JAX package: d(depth)/d(full-resolution pixel) at the grid points.
+                gzx, gzy = grad_ops.sobel(depth_prev_full)
+                grads_z = (
+                    (gzx / _SOBEL_GAIN)[..., ::stride, ::stride],
+                    (gzy / _SOBEL_GAIN)[..., ::stride, ::stride],
+                )
+            if not approx:
+                gx2, gy2 = grad_ops.sobel(gray_curr)
+                grads = (gx2 / sgain, gy2 / sgain)
+            elif fl is None or illum_affine:
+                # ESM at a fused level averages into the frozen window's planes
+                # (the configuration requires the frozen window there); affine's
+                # "shift" Jacobian is the template's own.
+                g1x_s, g1y_s = _template_gradients(
+                    gray_prev_full, depth_prev_full, gray_curr, intrinsics, estimate0, cfg,
+                    level, esm=plan.esm and not plan.fused,
+                )
+                if not plan.fused or illum_affine:
+                    # Affine's "shift" evaluations take the template's own Jacobian,
+                    # without ESM's average, beside the level kernel's planes.
+                    pre_jac = approximate_jacobian(
+                        depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
+                    )
+                if plan.default_mode == "fused" and fl is None:
+                    jac_planes = approximate_jacobian_planes(
+                        depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
+                    )
+            # The packed image of the "packed" mode (the fallback packs its own).
+            gray_curr_packed = (
+                interp_ops.pack_neighbors(gray_curr) if plan.default_mode == "packed" else None
             )
-        else:
-            weights = valid.to(torch.float32)
-        sys = normal_equations(res, jac, weights, valid)
-        if illum_bias:
-            sys = _bias_schur(sys, res, jac, weights)
-        elif illum_affine:
-            sys = _affine_schur(sys, res, jac, weights, tpl_c)
-        return sys.hessian, sys.rhs, sys.error, sys.count, weight_lambda
+            grads_packed = (
+                interp_ops.pack_pair_f16(*grads)
+                if grads is not None and (cfg.packed_sampling or plan.shift_stack)
+                else None
+            )
 
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+            def fallback_trigger():
+                """-> the terms of the per-element hard-motion flags at the
+                level's start, (coverage, rotation, displacement): shift-ball
+                coverage, and with the template's Jacobian the rotation angle
+                and, at the coarsest level, the RMS displacement (None where
+                a term does not apply)."""
+                if fl is not None:
+                    u0, v0, vg0 = fl.u0, fl.v0, fl.valid_geom0
+                else:
+                    _, u0, v0, vg0 = warp_geometry(depth_prev_m, intrinsics, estimate0, stride)
+                r = radius if radius is not None else 4
+                # The coverage of the centres the level will use.
+                ba = block_args(cfg, plan)
+                if plan.tiles:
+                    cov = shift_coverage_tiles(
+                        u0, v0, r, stride, ba["n_blocks"], ba["n_blocks_x"], vg0,
+                        radius_y=ba["radius_y"], center_bound=cfg.recenter_center_bound,
+                    )
+                elif plan.blocks:
+                    cov = shift_coverage_blocks(u0, v0, r, stride, ba["n_blocks"], vg0,
+                                                radius_y=ba["radius_y"])
+                else:
+                    cov = shift_coverage(u0, v0, r, stride, coord_mask=vg0)
+                hard_cov = cov < cfg.shift_fallback_min_coverage
+                if not approx:
+                    return hard_cov, None, None
+                rot = estimate0[:, :3, :3]
+                cos_t = 0.5 * (torch.diagonal(rot, dim1=-2, dim2=-1).sum(-1) - 1.0)
+                theta = torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
+                # ESM's Jacobian is half evaluated at the level-start warp, so a
+                # relaxed rotation threshold may apply there.
+                max_rot = (
+                    cfg.esm_fallback_max_rotation
+                    if plan.esm and cfg.esm_fallback_max_rotation is not None
+                    else cfg.fallback_max_rotation
+                )
+                hard_rot = theta > max_rot
+                hard_rms = None
+                if level == cfg.levels - 1:
+                    col = torch.arange(wp, dtype=torch.float32, device=dev) * stride
+                    row = torch.arange(hp, dtype=torch.float32, device=dev) * stride
+                    du = u0 - col[None, :]
+                    dv = v0 - row[:, None]
+                    mf = vg0.to(torch.float32)
+                    denom = torch.clamp(torch.sum(mf, dim=(-2, -1)), min=1.0)
+                    rms = torch.sqrt(torch.sum((du * du + dv * dv) * mf, dim=(-2, -1)) / denom)
+                    hard_rms = rms > cfg.fallback_max_displacement
+                return hard_cov, hard_rot, hard_rms
 
-    def add_terms(hess, rhs, err, estimate, anchor):
-        """The depth term, then the motion prior, added to a reduced
-        photometric system, as the JAX package's evaluations add them.
-        -> (H, b, err, H without the prior)."""
-        if cfg.use_depth_residuals:
-            res_z, jac_z, valid_z = depth_residuals(
-                depth_prev_m, depth_curr_m, intrinsics, estimate, grads_z[0], grads_z[1],
-                grid_stride=stride,
-            )
-            w_z = huber_weights(res_z * res_z, valid_z, delta=cfg.depth_huber_delta)
-            sys_z = normal_equations(res_z, jac_z, w_z, valid_z)
-            hess = hess + cfg.depth_weight * sys_z.hessian
-            rhs = rhs + cfg.depth_weight * sys_z.rhs
-            err = err + cfg.depth_weight * sys_z.error
-        measured = hess
-        if cfg.sigma is not None:
-            log_old = se3.log(anchor)
-            inv_cov = 1.0 / cfg.sigma
-            hess = hess + inv_cov * eye6
-            rhs = rhs + inv_cov * log_old
-            err = err + _prior_energy(cfg, log_old)
-        return hess, rhs, err, measured
+            if plan.fallback:
+                terms = fallback_trigger()
+                hard0 = terms[0]
+                for term in terms[1:]:
+                    if term is not None:
+                        hard0 = hard0 | term
+                counts = None
+                if tracing():
+                    # Read back with the predicate: the streams each term
+                    # flags, and the streams whose result needs the gather
+                    # path (a retrack cascade's: the retracked ones).
+                    kept = hard0 if force_hard is None else force_hard
+                    counts = [kept.sum()] + [
+                        hard0.new_zeros((), dtype=torch.int64) if t is None else t.sum()
+                        for t in terms
+                    ]
+                if force_hard is not None:
+                    hard0 = hard0 | force_hard
 
-    def eval_mode(mode, estimate, anchor, weight_lambda, fb_prep):
-        """One evaluation -> (H, b, err, count, H without the prior,
-        lambda)."""
-        if mode == "fused":
-            # The fused kernel reduces the photometric term; the depth term
-            # and the prior are added here, as the JAX package adds them.
-            hess, rhs, err, count, lam = fused_shift_iteration(
-                fused_inputs(estimate), estimate, weight_lambda, radius=radius,
-                grid_stride=stride, image_h=image_h, image_w=image_w,
-                dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
-                use_tweights=cfg.use_weighter,
-                normalize_scale=cfg.weighter.normalize_scale, illum_bias=illum_bias,
-            )
-        else:
-            res, jac, valid = sample_mode(mode, estimate, fb_prep)
-            hess, rhs, err, count, lam = reduce_evaluation(res, jac, valid, weight_lambda)
-        hess, rhs, err, measured = add_terms(hess, rhs, err, estimate, anchor)
-        return hess, rhs, err, count, measured, lam
+        rel_eff = cfg.relative_tolerance
+        need_fb = False
+        if plan.fallback:
+            # One predicate for the whole batch (over every rank), fixed for
+            # the level: a mixed batch takes the always-correct gather path.
+            with trace_span("sync.trigger"):
+                if counts is None:
+                    need_fb = _any_over_ranks(hard0, group)
+                else:
+                    need_fb, counts = _any_over_ranks_counted(hard0, group, counts)
+            if counts is not None:
+                _count_trigger(need_fb, b, counts, force_hard is None)
+            if rel_eff is not None:
+                rel_eff = rel_eff * torch.where(
+                    hard0,
+                    torch.tensor(cfg.fallback_tolerance_scale, device=dev),
+                    torch.tensor(1.0, device=dev),
+                )
 
-    def sample_mode(mode, estimate, fb_prep):
-        """The residuals, Jacobian and validity of ``mode`` at ``estimate``."""
-        if mode == "shift":
-            res, jac, valid = warp_residuals_shift(
-                gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
-                grads_packed=grads_packed, precomputed_jacobian=pre_jac,
-                grid_stride=stride, radius=radius,
-            )
-        elif mode == "packed":
-            # As the fallback's mode (exact gradients) it samples the
-            # fallback's packed image with the level's own gradients.
-            res, jac, valid = warp_residuals_packed(
-                gray_prev, depth_prev_m,
-                gray_curr_packed if fb_prep is None else fb_prep[0],
-                intrinsics, estimate, grads_packed=grads_packed,
-                precomputed_jacobian=pre_jac, grid_stride=stride,
-            )
-        elif mode == "packed_exact":
-            res, jac, valid = warp_residuals_packed(
-                gray_prev, depth_prev_m, fb_prep[0], intrinsics, estimate,
-                grads_packed=fb_prep[1], grid_stride=stride,
-            )
-        elif pre_jac is not None:
-            res, jac, valid = warp_residuals(
-                gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
-                precomputed_jacobian=pre_jac, grid_stride=stride,
-            )
-        else:
-            res, jac, valid = warp_residuals(
-                gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
-                grads[0], grads[1], grid_stride=stride,
-            )
-        return res, jac, valid
-
-    # The mode is fixed for the level: the hard-motion path samples through
-    # the packed gather (with exact gradients where the level's Jacobian is
-    # the template's), built once.
-    mode, fb_prep = plan.default_mode, None
-    if need_fb:
-        mode = "packed_exact" if approx else "packed"
-        gfb = None
-        if approx:
-            gx2, gy2 = grad_ops.sobel(gray_curr)
-            gfb = interp_ops.pack_pair_f16(gx2 / sgain, gy2 / sgain)
-        fb_prep = (interp_ops.pack_neighbors(gray_curr), gfb)
-
-    def evaluate(estimate, anchor, weight_lambda):
-        return eval_mode(mode, estimate, anchor, weight_lambda, fb_prep)
-
-    max_iter = cfg.max_iterations_for_level(level)
-    if plan.level_kernel and not need_fb:
-        rel = (
-            None if rel_eff is None
-            else torch.broadcast_to(
-                torch.as_tensor(rel_eff, dtype=torch.float32, device=dev), (b,)
-            )
+        wlam_init = torch.full(
+            (b,), 1.0 / (cfg.weighter.initial_sigma**2), dtype=torch.float32, device=dev
         )
-        est, anchor, wlam, err, count, its, inputs = solve_level_fused(
-            fl.planes, fl.cu, fl.cv, depth_prev_m, gray_prev, jac_planes, intrinsics,
-            estimate0, prior_anchor0, wlam_init, rel,
-            image_h=image_h, image_w=image_w, radius=radius,
-            grid_stride=stride, dof=cfg.weighter.dof,
-            unroll=cfg.weighter.unroll_iterations or 3,
-            use_tweights=cfg.use_weighter,
-            normalize_scale=cfg.weighter.normalize_scale,
-            tolerance=cfg.tolerance, lm_lambda0=cfg.lm_lambda0,
-            lm_up=cfg.lm_up, lm_down=cfg.lm_down,
-            lm_lambda_max=cfg.lm_lambda_max, max_iterations=max_iter,
-            illum_bias=illum_bias, illum_affine=illum_affine,
-            depth_planes=fl.depth_planes,
-            zgrad=None if grads_z is None else torch.stack(grads_z, dim=1),
-            sigma=cfg.sigma, reference_prior_energy=cfg.reference_prior_energy,
-            depth_weight=cfg.depth_weight, depth_huber_delta=cfg.depth_huber_delta,
-            **block_args(cfg, plan),
-        )
-        if one_window:
-            level_in = inputs
-        diag = LevelDiagnostics(
-            iterations=its, error=err, count=count,
-            scale=torch.rsqrt(torch.clamp(wlam, min=1e-20)),
-        )
-    elif cfg.lm_lambda0 is not None:
-        est, anchor, wlam, diag = _lm_loop(
-            evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
-        )
-    else:
-        est, anchor, wlam, diag = _gn_loop(
-            evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
-        )
-    if not want_hessian:
-        return est, diag, torch.zeros((b, 6, 6), dtype=torch.float32, device=dev)
-    # The photometric Hessian at the returned estimate, re-evaluated once.
-    return est, diag, evaluate(est, anchor, wlam)[4]
+        level_in = None  # the fused kernels' inputs (LevelInputs), built once
+        # The fused kernel reads one window centre: a level of blocks or tiles
+        # recentres it at each evaluated estimate, as the JAX package does there
+        # (its frozen window is None; JAX robust.py:811-812, :578).
+        one_window = fl is not None and not (plan.blocks or plan.tiles)
+
+        def fused_inputs(estimate) -> LevelInputs:
+            """The fused kernel's inputs for an evaluation of ``estimate``: the
+            frozen window, or (``freeze_shift_window`` off, or blocks or tiles)
+            the window recentred at ``estimate``."""
+            nonlocal level_in
+            if level_in is None:
+                zero = torch.zeros((b,), dtype=torch.int32, device=dev)
+                cu, cv = (fl.cu, fl.cv) if one_window else (zero, zero)
+                points, scal = level_inputs(
+                    cu, cv, depth_prev_m, intrinsics, estimate0, prior_anchor0, wlam_init,
+                    None, stride,
+                )
+                level_in = LevelInputs(
+                    fl.planes if one_window else None, points, gray_prev, jac_planes, scal
+                )
+            if one_window:
+                return level_in
+            _, u, v, vg = warp_geometry(depth_prev_m, intrinsics, estimate, stride)
+            cu, cv = compute_recenter(u, v, radius, stride, vg)
+            planes = extract_parity_planes(gray_curr, cu, cv, hp, wp, radius, stride)
+            return with_window(level_in, planes, cu, cv)
+
+        def reduce_evaluation(res, jac, valid, weight_lambda):
+            """Illumination pre-fit, IRLS weights, normal equations and the
+            illumination Schur of one evaluation at the strided grid."""
+            tpl_c = None
+            if cfg.illumination is not None:
+                # Remove the best unweighted illumination fit before the robust
+                # weights; the Schur step then eliminates the weighted rest.
+                nv = torch.clamp(valid.sum(dim=(-2, -1)).to(torch.float32), min=1.0)
+                zero = torch.zeros_like(res)
+                mu_r = torch.where(valid, res, zero).sum(dim=(-2, -1)) / nv
+                res = torch.where(valid, res - mu_r[:, None, None], zero)
+                if illum_affine:
+                    tpl_mu = torch.where(valid, gray_prev, zero).sum(dim=(-2, -1)) / nv
+                    tpl_c = torch.where(valid, gray_prev - tpl_mu[:, None, None], zero)
+                    alpha = (tpl_c * res).sum(dim=(-2, -1)) / torch.clamp(
+                        (tpl_c * tpl_c).sum(dim=(-2, -1)), min=1e-6
+                    )
+                    res = res - alpha[:, None, None] * tpl_c
+            if cfg.use_weighter:
+                weights, weight_lambda = t_distribution_weights_with_scale(
+                    res * res, valid, cfg.weighter, event_ndim=2,
+                    init_lambda=weight_lambda if cfg.weighter.warm_start else None,
+                )
+            else:
+                weights = valid.to(torch.float32)
+            sys = normal_equations(res, jac, weights, valid)
+            if illum_bias:
+                sys = _bias_schur(sys, res, jac, weights)
+            elif illum_affine:
+                sys = _affine_schur(sys, res, jac, weights, tpl_c)
+            return sys.hessian, sys.rhs, sys.error, sys.count, weight_lambda
+
+        eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+
+        def add_terms(hess, rhs, err, estimate, anchor):
+            """The depth term, then the motion prior, added to a reduced
+            photometric system, as the JAX package's evaluations add them.
+            -> (H, b, err, H without the prior)."""
+            if cfg.use_depth_residuals:
+                res_z, jac_z, valid_z = depth_residuals(
+                    depth_prev_m, depth_curr_m, intrinsics, estimate, grads_z[0], grads_z[1],
+                    grid_stride=stride,
+                )
+                w_z = huber_weights(res_z * res_z, valid_z, delta=cfg.depth_huber_delta)
+                sys_z = normal_equations(res_z, jac_z, w_z, valid_z)
+                hess = hess + cfg.depth_weight * sys_z.hessian
+                rhs = rhs + cfg.depth_weight * sys_z.rhs
+                err = err + cfg.depth_weight * sys_z.error
+            measured = hess
+            if cfg.sigma is not None:
+                log_old = se3.log(anchor)
+                inv_cov = 1.0 / cfg.sigma
+                hess = hess + inv_cov * eye6
+                rhs = rhs + inv_cov * log_old
+                err = err + _prior_energy(cfg, log_old)
+            return hess, rhs, err, measured
+
+        def eval_mode(mode, estimate, anchor, weight_lambda, fb_prep):
+            """One evaluation -> (H, b, err, count, H without the prior,
+            lambda)."""
+            if mode == "fused":
+                # The fused kernel reduces the photometric term; the depth term
+                # and the prior are added here, as the JAX package adds them.
+                hess, rhs, err, count, lam = fused_shift_iteration(
+                    fused_inputs(estimate), estimate, weight_lambda, radius=radius,
+                    grid_stride=stride, image_h=image_h, image_w=image_w,
+                    dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
+                    use_tweights=cfg.use_weighter,
+                    normalize_scale=cfg.weighter.normalize_scale, illum_bias=illum_bias,
+                )
+            else:
+                res, jac, valid = sample_mode(mode, estimate, fb_prep)
+                hess, rhs, err, count, lam = reduce_evaluation(res, jac, valid, weight_lambda)
+            hess, rhs, err, measured = add_terms(hess, rhs, err, estimate, anchor)
+            return hess, rhs, err, count, measured, lam
+
+        def sample_mode(mode, estimate, fb_prep):
+            """The residuals, Jacobian and validity of ``mode`` at ``estimate``."""
+            if mode == "shift":
+                res, jac, valid = warp_residuals_shift(
+                    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
+                    grads_packed=grads_packed, precomputed_jacobian=pre_jac,
+                    grid_stride=stride, radius=radius,
+                )
+            elif mode == "packed":
+                # As the fallback's mode (exact gradients) it samples the
+                # fallback's packed image with the level's own gradients.
+                res, jac, valid = warp_residuals_packed(
+                    gray_prev, depth_prev_m,
+                    gray_curr_packed if fb_prep is None else fb_prep[0],
+                    intrinsics, estimate, grads_packed=grads_packed,
+                    precomputed_jacobian=pre_jac, grid_stride=stride,
+                )
+            elif mode == "packed_exact":
+                res, jac, valid = warp_residuals_packed(
+                    gray_prev, depth_prev_m, fb_prep[0], intrinsics, estimate,
+                    grads_packed=fb_prep[1], grid_stride=stride,
+                )
+            elif pre_jac is not None:
+                res, jac, valid = warp_residuals(
+                    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
+                    precomputed_jacobian=pre_jac, grid_stride=stride,
+                )
+            else:
+                res, jac, valid = warp_residuals(
+                    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
+                    grads[0], grads[1], grid_stride=stride,
+                )
+            return res, jac, valid
+
+        # The mode is fixed for the level: the hard-motion path samples through
+        # the packed gather (with exact gradients where the level's Jacobian is
+        # the template's), built once.
+        mode = plan.default_mode
+        if need_fb:
+            mode = "packed_exact" if approx else "packed"
+        on_kernel = plan.level_kernel and not need_fb
+        if tracing():
+            path = ("kernel" if on_kernel
+                    else f"{'lm' if cfg.lm_lambda0 is not None else 'gn'}.{mode}")
+            level_span.set(path=path)
+            trace_count(f"levels.{path}")
+        fb_prep = None
+
+        def evaluate(estimate, anchor, weight_lambda):
+            return eval_mode(mode, estimate, anchor, weight_lambda, fb_prep)
+
+        with trace_span("level.solve"):
+            if need_fb:
+                gfb = None
+                if approx:
+                    gx2, gy2 = grad_ops.sobel(gray_curr)
+                    gfb = interp_ops.pack_pair_f16(gx2 / sgain, gy2 / sgain)
+                fb_prep = (interp_ops.pack_neighbors(gray_curr), gfb)
+            max_iter = cfg.max_iterations_for_level(level)
+            if on_kernel:
+                rel = (
+                    None if rel_eff is None
+                    else torch.broadcast_to(
+                        torch.as_tensor(rel_eff, dtype=torch.float32, device=dev), (b,)
+                    )
+                )
+                est, anchor, wlam, err, count, its, inputs = solve_level_fused(
+                    fl.planes, fl.cu, fl.cv, depth_prev_m, gray_prev, jac_planes, intrinsics,
+                    estimate0, prior_anchor0, wlam_init, rel,
+                    image_h=image_h, image_w=image_w, radius=radius,
+                    grid_stride=stride, dof=cfg.weighter.dof,
+                    unroll=cfg.weighter.unroll_iterations or 3,
+                    use_tweights=cfg.use_weighter,
+                    normalize_scale=cfg.weighter.normalize_scale,
+                    tolerance=cfg.tolerance, lm_lambda0=cfg.lm_lambda0,
+                    lm_up=cfg.lm_up, lm_down=cfg.lm_down,
+                    lm_lambda_max=cfg.lm_lambda_max, max_iterations=max_iter,
+                    illum_bias=illum_bias, illum_affine=illum_affine,
+                    depth_planes=fl.depth_planes,
+                    zgrad=None if grads_z is None else torch.stack(grads_z, dim=1),
+                    sigma=cfg.sigma, reference_prior_energy=cfg.reference_prior_energy,
+                    depth_weight=cfg.depth_weight, depth_huber_delta=cfg.depth_huber_delta,
+                    **block_args(cfg, plan),
+                )
+                if one_window:
+                    level_in = inputs
+                diag = LevelDiagnostics(
+                    iterations=its, error=err, count=count,
+                    scale=torch.rsqrt(torch.clamp(wlam, min=1e-20)),
+                )
+            elif cfg.lm_lambda0 is not None:
+                est, anchor, wlam, diag = _lm_loop(
+                    evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
+                )
+            else:
+                est, anchor, wlam, diag = _gn_loop(
+                    evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
+                )
+        if not want_hessian:
+            return est, diag, torch.zeros((b, 6, 6), dtype=torch.float32, device=dev)
+        # The photometric Hessian at the returned estimate, re-evaluated once.
+        with trace_span("level.hessian"):
+            return est, diag, evaluate(est, anchor, wlam)[4]
 
 
 def _box2(x: torch.Tensor) -> torch.Tensor:
@@ -1034,114 +1131,126 @@ def track_pair(
     are then taken over every rank (the module docstring lists the
     collectives), so each element tracks as in the whole batch on one
     device; every rank of the group must call this together."""
-    dev = prev.gray[0].device
-    b = prev.gray[0].shape[0]
-    eye = torch.eye(4, dtype=torch.float32, device=dev).expand(b, 4, 4)
+    with trace_span("track.pair"):
+        dev = prev.gray[0].device
+        b = prev.gray[0].shape[0]
+        eye = torch.eye(4, dtype=torch.float32, device=dev).expand(b, 4, 4)
 
-    def batch4(x):
-        return torch.broadcast_to(
-            torch.as_tensor(x, dtype=torch.float32, device=dev), (b, 4, 4)
-        )
-
-    estimate = eye if init_guess is None else batch4(init_guess)
-    anchor = eye if last_transform is None else batch4(last_transform)
-
-    def k_at(level):
-        return camera.at(level).to(dev)
-
-    if cfg.robust_init_selection and init_guess is not None:
-        # Score candidates at half the coarsest level's resolution through
-        # 2x2 box-filtered intensities.
-        lvl = cfg.levels - 1
-        gp_sel = _box2(prev.gray[lvl])
-        hs, ws = gp_sel.shape[-2], gp_sel.shape[-1]
-        dp_sel = prev.depth_m[lvl][..., ::2, ::2][..., :hs, :ws]
-        packed_sel = interp_ops.pack_neighbors(_box2(curr.gray[lvl]))
-        half = torch.tensor(
-            [[0.5, 0.0, -0.25], [0.0, 0.5, -0.25], [0.0, 0.0, 1.0]],
-            dtype=torch.float32, device=dev,
-        )
-        k_sel = half @ k_at(lvl)
-
-        def score(candidate):
-            return _initial_photometric_error(gp_sel, dp_sel, packed_sel, k_sel, candidate)
-
-        if cfg.init_scale_ladder is not None:
-            # Candidates exp(a * log(guess)) along the constant-velocity
-            # screw; a=0 is the identity, a=1 the guess verbatim (the f32
-            # log/exp round trip is ill-conditioned near theta=pi).  The
-            # first minimum wins: scales ascend, so ties go to the smaller
-            # motion.
-            scales = sorted(set((0.0, 1.0) + tuple(cfg.init_scale_ladder)))
-            xi = se3.log(estimate)
-            cands = torch.stack([
-                estimate if a == 1.0
-                else se3.exp(torch.tensor(a, dtype=torch.float32, device=dev) * xi)
-                for a in scales
-            ])
-            errs = torch.stack([score(c) for c in cands])
-            best = torch.argmin(errs, dim=0)
-            estimate = cands[best, torch.arange(b, device=dev)]
-        else:
-            # Score {guess, identity}; ties keep the guess.
-            err_guess, err_eye = score(estimate), score(eye)
-            estimate = torch.where((err_eye < err_guess)[:, None, None], eye, estimate)
-
-    est_init = estimate
-
-    def run_cascade(force_hard):
-        est = est_init
-        diags = []
-        hessian = None
-        for level in range(cfg.levels - 1, -1, -1):
-            est, diag, hessian = _solve_level(
-                prev.gray[level], prev.depth_m[level], curr.gray[level],
-                k_at(level), est, anchor, cfg, level=level,
-                want_hessian=(level == 0), force_hard=force_hard,
-                depth_curr_m=curr.depth_m[level], group=group,
+        def batch4(x):
+            return torch.broadcast_to(
+                torch.as_tensor(x, dtype=torch.float32, device=dev), (b, 4, 4)
             )
-            diags.append(diag)
-        stacked = LevelDiagnostics(
-            iterations=torch.stack([d.iterations for d in diags]),
-            error=torch.stack([d.error for d in diags]),
-            count=torch.stack([d.count for d in diags]),
-            scale=torch.stack([d.scale for d in diags]),
-        )
-        return est, stacked, hessian
 
-    estimate, stacked, hessian = run_cascade(None)
+        estimate = eye if init_guess is None else batch4(init_guess)
+        anchor = eye if last_transform is None else batch4(last_transform)
 
-    if (
-        cfg.retrack_max_scale is not None
-        and cfg.use_weighter
-        and cfg.shift_stack_fallback
-    ):
-        # Scale-gated retrack from the initial estimate with the hard-motion
-        # path forced at every level; results are picked per element.
-        bad = stacked.scale[-1] > cfg.retrack_max_scale
-        if _any_over_ranks(bad, group):
-            est2, st2, hess2 = run_cascade(bad)
-            pick = bad[:, None, None]
-            estimate = torch.where(pick, est2, estimate)
-            hessian = torch.where(pick, hess2, hessian)
+        def k_at(level):
+            return camera.at(level).to(dev)
+
+        if cfg.robust_init_selection and init_guess is not None:
+            with trace_span("track.init"):
+                # Score candidates at half the coarsest level's resolution through
+                # 2x2 box-filtered intensities.
+                lvl = cfg.levels - 1
+                gp_sel = _box2(prev.gray[lvl])
+                hs, ws = gp_sel.shape[-2], gp_sel.shape[-1]
+                dp_sel = prev.depth_m[lvl][..., ::2, ::2][..., :hs, :ws]
+                packed_sel = interp_ops.pack_neighbors(_box2(curr.gray[lvl]))
+                half = torch.tensor(
+                    [[0.5, 0.0, -0.25], [0.0, 0.5, -0.25], [0.0, 0.0, 1.0]],
+                    dtype=torch.float32, device=dev,
+                )
+                k_sel = half @ k_at(lvl)
+
+                def score(candidate):
+                    return _initial_photometric_error(
+                        gp_sel, dp_sel, packed_sel, k_sel, candidate
+                    )
+
+                if cfg.init_scale_ladder is not None:
+                    # Candidates exp(a * log(guess)) along the constant-velocity
+                    # screw; a=0 is the identity, a=1 the guess verbatim (the f32
+                    # log/exp round trip is ill-conditioned near theta=pi).  The
+                    # first minimum wins: scales ascend, so ties go to the smaller
+                    # motion.
+                    scales = sorted(set((0.0, 1.0) + tuple(cfg.init_scale_ladder)))
+                    xi = se3.log(estimate)
+                    cands = torch.stack([
+                        estimate if a == 1.0
+                        else se3.exp(torch.tensor(a, dtype=torch.float32, device=dev) * xi)
+                        for a in scales
+                    ])
+                    errs = torch.stack([score(c) for c in cands])
+                    best = torch.argmin(errs, dim=0)
+                    estimate = cands[best, torch.arange(b, device=dev)]
+                else:
+                    # Score {guess, identity}; ties keep the guess.
+                    err_guess, err_eye = score(estimate), score(eye)
+                    estimate = torch.where((err_eye < err_guess)[:, None, None], eye, estimate)
+
+        est_init = estimate
+
+        def run_cascade(force_hard):
+            est = est_init
+            diags = []
+            hessian = None
+            with trace_span("track.cascade", retrack=int(force_hard is not None)):
+                for level in range(cfg.levels - 1, -1, -1):
+                    est, diag, hessian = _solve_level(
+                        prev.gray[level], prev.depth_m[level], curr.gray[level],
+                        k_at(level), est, anchor, cfg, level=level,
+                        want_hessian=(level == 0), force_hard=force_hard,
+                        depth_curr_m=curr.depth_m[level], group=group,
+                    )
+                    diags.append(diag)
             stacked = LevelDiagnostics(
-                iterations=torch.maximum(stacked.iterations, st2.iterations),
-                error=torch.where(bad[None], st2.error, stacked.error),
-                count=torch.where(bad[None], st2.count, stacked.count),
-                scale=torch.where(bad[None], st2.scale, stacked.scale),
+                iterations=torch.stack([d.iterations for d in diags]),
+                error=torch.stack([d.error for d in diags]),
+                count=torch.stack([d.count for d in diags]),
+                scale=torch.stack([d.scale for d in diags]),
             )
-    if group is not None:
-        iterations = stacked.iterations.clone()
-        dist.all_reduce(iterations, op=dist.ReduceOp.MAX, group=group)
-        stacked = stacked._replace(iterations=iterations)
-    success = (
-        torch.all(torch.isfinite(estimate).reshape(b, -1), dim=-1)
-        & torch.isfinite(stacked.error[-1])
-        & (stacked.count[-1] >= 6.0)
-    )
-    return TrackResult(
-        transform=estimate, success=success, diagnostics=stacked, hessian=hessian
-    )
+            return est, stacked, hessian
+
+        estimate, stacked, hessian = run_cascade(None)
+
+        if (
+            cfg.retrack_max_scale is not None
+            and cfg.use_weighter
+            and cfg.shift_stack_fallback
+        ):
+            # Scale-gated retrack from the initial estimate with the hard-motion
+            # path forced at every level; results are picked per element.
+            bad = stacked.scale[-1] > cfg.retrack_max_scale
+            with trace_span("sync.retrack"):
+                if tracing():
+                    retrack, (retracked,) = _any_over_ranks_counted(bad, group, [bad.sum()])
+                    trace_count("retracks", int(retrack))
+                    trace_count("streams.retracked", retracked)
+                else:
+                    retrack = _any_over_ranks(bad, group)
+            if retrack:
+                est2, st2, hess2 = run_cascade(bad)
+                pick = bad[:, None, None]
+                estimate = torch.where(pick, est2, estimate)
+                hessian = torch.where(pick, hess2, hessian)
+                stacked = LevelDiagnostics(
+                    iterations=torch.maximum(stacked.iterations, st2.iterations),
+                    error=torch.where(bad[None], st2.error, stacked.error),
+                    count=torch.where(bad[None], st2.count, stacked.count),
+                    scale=torch.where(bad[None], st2.scale, stacked.scale),
+                )
+        if group is not None:
+            iterations = stacked.iterations.clone()
+            dist.all_reduce(iterations, op=dist.ReduceOp.MAX, group=group)
+            stacked = stacked._replace(iterations=iterations)
+        success = (
+            torch.all(torch.isfinite(estimate).reshape(b, -1), dim=-1)
+            & torch.isfinite(stacked.error[-1])
+            & (stacked.count[-1] >= 6.0)
+        )
+        return TrackResult(
+            transform=estimate, success=success, diagnostics=stacked, hessian=hessian
+        )
 
 
 def step_pose(pose: torch.Tensor, result: TrackResult) -> torch.Tensor:

@@ -28,6 +28,7 @@ from dense_visual_odometry_torch.models.robust import (
     track_pair,
 )
 from dense_visual_odometry_torch.utils.lie import Pose, se3
+from dense_visual_odometry_torch.utils.profiling import trace_span
 
 
 class SessionState(NamedTuple):
@@ -73,26 +74,27 @@ def session_step(
         init_guess=state.last_transform if use_cv_guess else init_guess,
         last_transform=state.last_transform,
     )
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
-    # A frame with (almost) no valid depth may still track but must not
-    # become the reference frame.
-    curr_usable = torch.sum(curr.depth_m[0] > 0.0) >= 16
-    is_first = ~state.initialized
-    transform = torch.where(is_first, eye, result.transform[0])
-    success = (is_first | result.success[0]) & curr_usable
-    new_pose = torch.where(success, state.pose @ se3.inverse(transform), state.pose)
-    new_prev = FrameData(
-        gray=tuple(torch.where(success, n, o) for n, o in zip(curr.gray, state.prev.gray)),
-        depth_m=tuple(
-            torch.where(success, n, o) for n, o in zip(curr.depth_m, state.prev.depth_m)
-        ),
-    )
-    new_state = SessionState(
-        pose=new_pose,
-        last_transform=torch.where(success, transform, state.last_transform),
-        prev=new_prev,
-        initialized=state.initialized | curr_usable,
-    )
+    with trace_span("session.commit"):
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        # A frame with (almost) no valid depth may still track but must not
+        # become the reference frame.
+        curr_usable = torch.sum(curr.depth_m[0] > 0.0) >= 16
+        is_first = ~state.initialized
+        transform = torch.where(is_first, eye, result.transform[0])
+        success = (is_first | result.success[0]) & curr_usable
+        new_pose = torch.where(success, state.pose @ se3.inverse(transform), state.pose)
+        new_prev = FrameData(
+            gray=tuple(torch.where(success, n, o) for n, o in zip(curr.gray, state.prev.gray)),
+            depth_m=tuple(
+                torch.where(success, n, o) for n, o in zip(curr.depth_m, state.prev.depth_m)
+            ),
+        )
+        new_state = SessionState(
+            pose=new_pose,
+            last_transform=torch.where(success, transform, state.last_transform),
+            prev=new_prev,
+            initialized=state.initialized | curr_usable,
+        )
     return new_state, StepOutput(
         pose=new_pose, transform=transform, success=success, result=result
     )
@@ -171,22 +173,23 @@ class OdometrySession:
     def step(self, image, depth, init_guess=None) -> Pose:
         """Track one frame; returns the camera-to-world pose.  Diagnostics
         of the step are in :attr:`last_output`."""
-        if self._state is None:
-            shape = depth.shape if isinstance(depth, torch.Tensor) else np.shape(depth)
-            h, w = shape[-2:]
-            self._state = init_state(
-                h, w, self.config.levels, self._init_pose, self.device
+        with trace_span("session.step", streams=1):
+            if self._state is None:
+                shape = depth.shape if isinstance(depth, torch.Tensor) else np.shape(depth)
+                h, w = shape[-2:]
+                self._state = init_state(
+                    h, w, self.config.levels, self._init_pose, self.device
+                )
+            use_cv = init_guess is None and self.config.constant_velocity_init
+            guess = (
+                torch.eye(4, dtype=torch.float32, device=self.device)
+                if init_guess is None
+                else as_device_tensor(np.asarray(init_guess, np.float32), self.device)
             )
-        use_cv = init_guess is None and self.config.constant_velocity_init
-        guess = (
-            torch.eye(4, dtype=torch.float32, device=self.device)
-            if init_guess is None
-            else as_device_tensor(np.asarray(init_guess, np.float32), self.device)
-        )
-        self._state, out = session_step(
-            self._state, image, depth, self.camera, guess, self.config,
-            use_cv_guess=use_cv,
-        )
+            self._state, out = session_step(
+                self._state, image, depth, self.camera, guess, self.config,
+                use_cv_guess=use_cv,
+            )
         self.last_output = out
         return Pose(out.pose)
 

@@ -351,7 +351,7 @@ def test_default_platform_is_the_gpu(dataset):
 def test_cli_options_run(dataset, runs, tmp_path):
     """``--pipeline`` reads the same poses a frame later; ``--host-gray``,
     ``--pyr-down`` (half resolution, intrinsics of level 1), ``-s`` and
-    ``--profile-dir`` run and track."""
+    ``--profile-dir`` run and track; the trace holds the program's spans."""
     seq, cam, cfg = dataset
     kw = dict(data_dir=str(seq), camera=str(cam), config=str(cfg))
     base = runs[0]
@@ -361,7 +361,8 @@ def test_cli_options_run(dataset, runs, tmp_path):
                         "--platform", "cpu", "--host-gray", "-s", "3",
                         "--profile-dir", str(tmp_path / "prof")])
     assert gray["frames"] == 3 and gray["ate_rmse_m"] < 0.01
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    assert {"session.step", "track.level", "sync.trigger"} <= {e.get("name") for e in events}
     half = tbench.run(args(**kw, pyr_down=True, size=3))
     assert half["frames"] == 3 and np.isfinite(half["ate_rmse_m"])
 
