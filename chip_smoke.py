@@ -32,7 +32,10 @@ Phases, each printing one JSON line:
    (``FUSED_LEVELS``) for the same batch sizes, without illumination and
    with the bias, on the level kernel's inputs, with its geometry, and at
    level 0 at strides 3 and 4; the stack kernel at levels 0 and 3 and at
-   level 0 at strides 3 and 4, for the same batch sizes; at B=8 and 64
+   level 0 at strides 3 and 4, for the same batch sizes; the pyramid kernel
+   (one pyramid step, ``median_pyr_down``) on the gray and depth images of
+   levels 0 and 2 at B=1, 8, 64 and 256 (``PYRAMID_BATCHES``), equal to the
+   plain network bit for bit, timed beside it; at B=8 and 64
    the level kernel (levels 0 and 3) and the fused kernel (level 0) also at
    every cluster size and input residency that fits, timed.  The level and
    fused kernels run each case twice and must repeat bit for bit, and up to
@@ -198,6 +201,7 @@ from dense_visual_odometry_torch.ops.cuda.level_solver import (
 )
 from dense_visual_odometry_torch.ops.cuda.stackwarp import stack_accumulate
 from dense_visual_odometry_torch.ops.gradients import sobel
+from dense_visual_odometry_torch.ops.pyramid import median3x3
 from dense_visual_odometry_torch.ops.shiftwarp import residual_displacements, tent_sample
 from dense_visual_odometry_torch.parallel import batched_track_pair, stack_frame_data
 from dense_visual_odometry_torch.utils.lie import se3
@@ -217,6 +221,10 @@ STRICT_MAX_BATCH = 8  # see level_agrees and fused_agrees
 # LM iteration.
 FUSED_LEVELS = ((0, "tpu_fast"), (1, "tpu_accurate"), (2, "tpu_accurate"))
 MAIN_BATCH = 64
+# The pyramid kernel's cases in phase 3: batch sizes (256: the benchmark's
+# fast.b256.xyz) and input levels (480x640 and 120x160).
+PYRAMID_BATCHES = (1, 8, 64, 256)
+PYRAMID_LEVELS = (0, 2)
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM bytes/s and FP32
@@ -434,7 +442,7 @@ def phase_environment(smi: str) -> dict:
 
 
 def phase_build() -> dict:
-    names = ("level_solver", "fused_iter", "stackwarp")
+    names = ("level_solver", "fused_iter", "stackwarp", "pyramid")
     t0 = time.perf_counter()
     paths = build.build(names)
     seconds = time.perf_counter() - t0
@@ -922,6 +930,43 @@ def check_stack_kernel(prev, curr, gt, cam, dev, level, cfg_name="tpu_parity"):
         "library_max_abs_diff": float((out_l[valid].double() - kv).abs().max()),
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bytes": nbytes, "ops": ops, **bound(nbytes, ops),
+    }
+
+
+def check_pyramid_kernel(frames, dev, batch, level):
+    """The pyramid kernel against the plain network (``median3x3`` then the
+    even rows and columns) on the gray and the depth images of ``level``
+    of ``batch`` frames (the sequence repeated): equal bit for bit; the
+    times are the gray's.  Its bound: one read of the input and one write
+    of the quarter-size output."""
+    # Imported here, as in zero_launches and run: profile_port.py loads this
+    # file on packages that predate the kernel.
+    from dense_visual_odometry_torch.ops.cuda.pyramid import median_pyr_down
+
+    idx = [i % len(frames) for i in range(batch)]
+    images = {name: torch.stack([getattr(frames[i], name)[level] for i in idx])
+              for name in ("gray", "depth_m")}
+
+    def plain(x):
+        return median3x3(x)[..., ::2, ::2].contiguous()
+
+    equal = {}
+    for name, x in images.items():
+        before = median_pyr_down.launches
+        out_k = median_pyr_down(x)
+        if median_pyr_down.launches != before + 1:
+            raise AssertionError("median_pyr_down did not launch its kernel")
+        out_p = plain(x)
+        torch.cuda.synchronize()
+        equal[name] = bit_equal(out_k, out_p)
+    gray = images["gray"]
+    ms = time_ms(lambda: median_pyr_down(gray), 20, dev)
+    plain_ms = time_ms(lambda: plain(gray), 10, dev)
+    nbytes = 4 * (gray.numel() + gray[..., ::2, ::2].numel())
+    return {
+        "phase": "kernel", "kernel": "pyramid", "level": level, "batch": batch,
+        "shape": list(gray.shape), "ok": all(equal.values()), "bit_equal": equal,
+        "ms": ms, "plain_ms": plain_ms, "bytes": nbytes, **bound(nbytes, 0),
     }
 
 
@@ -2776,12 +2821,15 @@ def run_distributed(frames, poses, k_dev, grays, depths, k_np, dev, smi) -> dict
 
 def zero_launches() -> None:
     """Every launch count of the port's kernels to 0."""
+    from dense_visual_odometry_torch.ops.cuda.pyramid import median_pyr_down
+
     lm_level.launches = 0
     lm_level.block_launches = 0
     lm_level.tile_launches = 0
     for fn in (lm_level, fused_iter.fused_evaluation, stack_accumulate):
         fn.launches = 0
         fn.runtime_stride_launches = 0
+    median_pyr_down.launches = 0
 
 
 def read_launches():
@@ -2816,6 +2864,10 @@ def kernel_checks(frames, poses, cam, dev) -> list:
     """Phase 3: every kernel against its plain version at the main path's
     level shapes and batch sizes; raises if one disagrees."""
     checks = []
+    for batch in PYRAMID_BATCHES:
+        for level in PYRAMID_LEVELS:
+            checks.append(check_pyramid_kernel(frames, dev, batch, level))
+            emit(checks[-1])
     for batch in KERNEL_BATCHES:
         prev, curr, gt, pairs = kernel_batch(frames, poses, dev, batch)
         anchors = previous_motions(poses, pairs, dev)
@@ -2938,9 +2990,14 @@ def run(dev: torch.device, smi: str) -> list:
     main["level_solver_launches"] = block_launches
     # Of each kernel's launches, those of its runtime-stride variant.
     main["runtime_stride_launches"] = stride_launches
+    # The pyramid kernel: two launches a level but the first, a frame.
+    from dense_visual_odometry_torch.ops.cuda.pyramid import median_pyr_down
+
+    main["pyramid_launches"] = median_pyr_down.launches
     emit(main)
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+    if min(*launches.values(), main["pyramid_launches"]) < 1:
+        raise AssertionError(f"a kernel of the main path never launched: {launches}, "
+                             f"pyramid {main['pyramid_launches']}")
     if min(block_launches.values()) < 1:
         raise AssertionError(f"the level kernel never launched on blocks or tiles: "
                              f"{block_launches}")

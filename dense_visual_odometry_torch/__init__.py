@@ -11,9 +11,9 @@ the SLAM back end on one device: keyframe SLAM (``models.slam.SlamSession``,
 mapping (``models.tsdf``, ``models.brick_tsdf``, ``models.frame_to_model``),
 and sparse odometry (``models.sparse.SparseVO`` with Harris + ZNCC or the
 LoFTR-lite matcher of ``models.matcher``, which ``apps.train_matcher``
-trains).  The three kernels of the
-tracker live in ``ops/cuda``; each has a plain PyTorch version that the CPU
-runs.
+trains).  The tracker's kernels live in
+``ops/cuda``: the three TPU kernels' ports and the pyramid step; each has a
+plain PyTorch version that the CPU runs.
 
 Geometry stays in full float32: TF32 is switched off for matrix products
 and convolutions, as the JAX package forces highest matmul precision.

@@ -4,6 +4,7 @@
 - ``fused_iter``: one photometric evaluation of a pose reduced to its 6x6
   system, on the level kernel's inputs.
 - ``stackwarp``: the frozen window sampled at per-pixel displacements.
+- ``pyramid``: one image-pyramid step, the 3x3 median at the kept pixels.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version for CPU tensors; each counts its launches in ``<wrapper>.launches``.

@@ -3,6 +3,9 @@
 A level is ``median3x3(previous)[::2, ::2]`` with replicated borders
 (cv2.medianBlur semantics); the median is the 19-exchange median-of-9
 selection network of ``dense_visual_odometry_tpu/ops/pyramid.py``.
+:func:`pyr_down` goes through the kernel wrapper
+:func:`~dense_visual_odometry_torch.ops.cuda.pyramid.median_pyr_down`, one
+launch a level on CUDA tensors; :func:`median3x3` is its plain twin.
 """
 
 from __future__ import annotations
@@ -11,6 +14,9 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+# A module import: the wrapper imports this module back for median3x3.
+from dense_visual_odometry_torch.ops.cuda import pyramid as pyr_kernel
 
 
 def _shift_stack_3x3(image: torch.Tensor) -> list:
@@ -49,7 +55,7 @@ def median3x3(image: torch.Tensor) -> torch.Tensor:
 
 def pyr_down(image: torch.Tensor) -> torch.Tensor:
     """One pyramid step: median smooth, then keep even rows/columns."""
-    return median3x3(image)[..., ::2, ::2].contiguous()
+    return pyr_kernel.median_pyr_down(image)
 
 
 def build_pyramid(image: torch.Tensor, levels: int) -> Tuple[torch.Tensor, ...]:

@@ -156,11 +156,12 @@ def tracing() -> bool:
 def _launches() -> Dict[str, int]:
     # The tracker imports the kernel wrappers in an order free of import cycles.
     from dense_visual_odometry_torch.models import robust  # noqa: F401
-    from dense_visual_odometry_torch.ops.cuda import fused_iter, level_solver, stackwarp
+    from dense_visual_odometry_torch.ops.cuda import fused_iter, level_solver, pyramid, stackwarp
 
     return {"lm_level.launches": level_solver.lm_level.launches,
             "fused_evaluation.launches": fused_iter.fused_evaluation.launches,
-            "stack_accumulate.launches": stackwarp.stack_accumulate.launches}
+            "stack_accumulate.launches": stackwarp.stack_accumulate.launches,
+            "median_pyr_down.launches": pyramid.median_pyr_down.launches}
 
 
 def enable_tracing() -> None:
@@ -185,8 +186,8 @@ def drain() -> dict:
     attributes it was given; a span still open stays for the next drain.
     The counters hold ``spans.dropped`` and the kernel wrappers' launches
     (``lm_level.launches``, ``fused_evaluation.launches``,
-    ``stack_accumulate.launches``) since tracing was enabled or last
-    drained."""
+    ``stack_accumulate.launches``, ``median_pyr_down.launches``) since
+    tracing was enabled or last drained."""
     rec = _rec
     spans = [s.as_dict() for s in rec.spans if s.end_ns is not None]
     counters = dict(rec.counters)

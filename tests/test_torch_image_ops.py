@@ -81,6 +81,33 @@ def test_median_pyramid_bit_identical(data):
     )
 
 
+@pytest.mark.parametrize("shape,kind", [
+    ((1, 1), "gray"), ((2, 3), "gray"), ((31, 45), "gray"), ((61, 81), "gray"),
+    ((2, 3, 31, 45), "gray"), ((2, 61, 81), "nan_inf"), ((2, 61, 81), "depth"),
+], ids=["1x1", "2x3", "31x45", "61x81", "lead2x3", "nan_inf", "depth_zeros"])
+def test_median_pyramid_bit_identical_shapes(shape, kind):
+    """The port's pyramid (the plain path of its kernel wrapper) at odd and
+    tiny shapes, extra leading dims, NaN and +-inf pixels, and depth with
+    zeroed pixels: equal to the JAX package's, NaN where NaN."""
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0, 255, shape).astype(np.float32)
+    if kind == "nan_inf":
+        x[..., 3, 5] = x[..., 18, 20] = np.nan
+        x[..., 10, 11:13] = np.inf
+        x[..., 17, 20] = -np.inf
+        x[..., -2:, -2:] = np.inf
+    if kind == "depth":
+        x /= 64.0
+        x[..., 3:9, 4:15] = 0.0
+        x[rng.uniform(size=shape) < 0.1] = 0.0
+    j = jax.jit(lambda v: jpyr.build_pyramid(v, 4))(x)
+    t = tpyr.build_pyramid(_t(x), 4)
+    for a, b in zip(t, j):
+        np.testing.assert_array_equal(_n(a), _n(b))
+    if kind == "nan_inf":
+        assert np.isnan(_n(t[1])).any() and np.isinf(_n(t[1])).any()
+
+
 @pytest.mark.parametrize("quantize", [False, True])
 def test_rgb_to_gray(data, quantize):
     rgb = data["rng"].integers(0, 256, (B, H, W, 3)).astype(np.uint8)

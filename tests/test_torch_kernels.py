@@ -23,7 +23,8 @@ on opposite sides.
 The CUDA kernels themselves have no CPU version; ``test_cuda_kernels_match_plain``
 (at B=1, 2 and 64), ``test_cuda_level_kernel_every_geometry`` and
 ``test_cuda_fused_kernel_every_geometry`` hold them against the plain
-versions on a GPU and skip without one.
+versions on a GPU and skip without one (the pyramid kernel's:
+``tests/test_torch_pyramid_kernel.py``).
 """
 
 import dataclasses
@@ -39,6 +40,7 @@ from dense_visual_odometry_torch.io import synthetic
 from dense_visual_odometry_torch.models import robust
 from dense_visual_odometry_torch.ops.cuda import fused_iter as tfused
 from dense_visual_odometry_torch.ops.cuda import level_solver as tlevel
+from dense_visual_odometry_torch.ops.cuda import pyramid as tpyrk
 from dense_visual_odometry_torch.ops.cuda import stackwarp as tstack
 from dense_visual_odometry_torch.ops.shiftwarp import residual_displacements, tent_sample
 from dense_visual_odometry_torch.utils.lie import se3
@@ -219,6 +221,8 @@ def test_wrappers_raise_off_cpu_and_cuda():
         tlevel.lm_level(*args, **_kernel_kwargs(CFG, s, (10, 10), None))
     with pytest.raises(RuntimeError, match="no kernel"):
         tfused.fused_evaluation(*args, radius=r, grid_stride=s, image_h=10, image_w=10)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tpyrk.median_pyr_down(z(b, hp, wp))
 
 
 def test_wrappers_check_inputs():
