@@ -24,6 +24,7 @@ Every function runs on the device of the volume it is given;
 from __future__ import annotations
 
 import dataclasses
+import math
 from pathlib import Path
 from typing import NamedTuple, Optional, Tuple
 
@@ -405,6 +406,18 @@ def trilinear_corners(cfg, rays: _Rays, t):
     return out
 
 
+def trilinear_sample(cfg, rays: _Rays, field: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The flat volume ``field`` sampled trilinearly along each ray at ``t``
+    (H, W)."""
+    _, hh, ww = cfg.dims
+    h, w = t.shape
+    acc = torch.zeros((h, w), dtype=torch.float32, device=t.device)
+    for ix, iy, iz, wgt in trilinear_corners(cfg, rays, t):
+        flat = iz * (hh * ww) + iy * ww + ix
+        acc = acc + wgt * field[flat.reshape(-1).long()].reshape(h, w)
+    return acc
+
+
 def refine_hits(cfg, valid, t_hit, sample_phi):
     """Two sphere-tracing steps on the trilinear field, t <- t + phi * tau
     (the march's sub-voxel refinement)."""
@@ -459,13 +472,6 @@ def raycast_view_march(
         phi = phi_field[flat.reshape(-1).long()].reshape(h, w)
         return torch.where(inside, phi, torch.ones_like(phi))
 
-    def sample_trilinear(field, t):
-        acc = torch.zeros((h, w), dtype=torch.float32, device=dev)
-        for ix, iy, iz, wgt in trilinear_corners(cfg, rays, t):
-            flat = iz * (hh * ww) + iy * ww + ix
-            acc = acc + wgt * field[flat.reshape(-1).long()].reshape(h, w)
-        return acc
-
     # dt is the float64 quotient rounded to float32, t = t0 + dt * (i + 1)
     # in float32 (JAX ``tsdf.py:458-463``).
     t0 = torch.tensor(cfg.min_depth, dtype=torch.float32, device=dev)
@@ -482,12 +488,139 @@ def raycast_view_march(
         t_hit = torch.where(crossing, t_lin, t_hit)
         found = found | crossing
         phi_prev, t_prev = phi, t
+    return _surface(cfg, rays, phi_field, gray_field, found, t_hit)
+
+
+def _surface(cfg, rays: _Rays, phi_field, gray_field, found, t_hit):
+    """A march's crossings refined on the trilinear field, with their gray
+    -> (depth_m with 0 = no surface, gray)."""
     # A ray whose first sample is already behind a surface is invalid.
     valid = found & (t_hit > cfg.min_depth)
-    t_hit = refine_hits(cfg, valid, t_hit, lambda t: sample_trilinear(phi_field, t))
-    gray = sample_trilinear(gray_field, t_hit)
+    t_hit = refine_hits(cfg, valid, t_hit, lambda t: trilinear_sample(cfg, rays, phi_field, t))
+    gray = trilinear_sample(cfg, rays, gray_field, t_hit)
     zero = torch.zeros_like(t_hit)
     return torch.where(valid, t_hit, zero), torch.where(valid, gray, zero)
+
+
+# Steps the volume march samples as one batch: ~0.5 GB of temporaries at
+# 640x480, and a tenth of the launches of one step at a time.
+MARCH_CHUNK = 32
+# The volume march's step in truncations: KinFu's raycast step, short
+# enough that no ray steps over the negative band behind a surface.
+VOLUME_MARCH_STEP = 0.8
+
+
+def volume_box(cfg: TSDFConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """The volume's lowest and highest world corners, (x, y, z) float64."""
+    lo = np.asarray(cfg.origin, np.float64)
+    return lo, lo + np.asarray(cfg.dims[::-1], np.float64) * cfg.voxel_size
+
+
+def volume_march_steps(cfg: TSDFConfig, pose, step: float, max_depth: float = 10.0) -> int:
+    """Steps of :func:`raycast_view_march_volume` from ``pose`` ((4, 4)
+    camera-to-world on the host): the camera depths the volume spans, from
+    its nearest to its farthest corner within [min_depth, max_depth], over
+    ``step``.  A ray's stretch inside the volume is never longer in camera
+    depth, so every ray reaches its exit."""
+    p = np.asarray(pose, np.float64)
+    lo, hi = volume_box(cfg)
+    corners = np.array([(x, y, z) for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                        for z in (lo[2], hi[2])])
+    z = (corners - p[:3, 3]) @ p[:3, 2]
+    near, far = max(float(z.min()), cfg.min_depth), min(float(z.max()), max_depth)
+    return max(0, int(math.ceil((far - near) / step)))
+
+
+def volume_ray_entry(cfg: TSDFConfig, rays: _Rays, max_depth: float) -> torch.Tensor:
+    """Each ray's entry into the volume's box (camera depth, (H, W)), by
+    the slab test, clipped to [min_depth, max_depth]."""
+    lo, hi = volume_box(cfg)
+    entry = torch.full_like(rays.dwx, cfg.min_depth)
+    for a, d in enumerate((rays.dwx, rays.dwy, rays.dwz)):
+        o = rays.origin[a]
+        flat = d == 0.0
+        safe = torch.where(flat, torch.ones_like(d), d)
+        near = torch.minimum((float(lo[a]) - o) / safe, (float(hi[a]) - o) / safe)
+        # A ray parallel to a slab enters it nowhere or everywhere.
+        outside = (o < float(lo[a])) | (o > float(hi[a]))
+        near = torch.where(flat, torch.where(outside, torch.full_like(d, math.inf),
+                                             torch.full_like(d, -math.inf)), near)
+        entry = torch.maximum(entry, near)
+    return torch.clamp(entry, cfg.min_depth, max_depth)
+
+
+def raycast_view_march_volume(
+    volume: TSDFVolume,
+    intrinsics,
+    pose,
+    cfg: TSDFConfig,
+    shape: Tuple[int, int],
+    n_steps: int,
+    step: float,
+    min_weight: float = 1.0,
+    max_depth: float = 10.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Render a virtual (depth, gray) view by marching each ray through the
+    volume only, at a step tied to the truncation (KinectFusion's raycast).
+
+    Each ray starts where it enters the volume's box (:func:`volume_ray_entry`)
+    and samples the field at its nearest voxel every ``step`` meters of
+    camera depth, ``n_steps`` times (:func:`volume_march_steps` from the
+    same pose covers the volume's depth span); samples outside the volume
+    read as free space.  The first positive-to-negative crossing, its
+    linear localisation, the two sphere-tracing steps on the trilinear
+    field and the trilinear gray are :func:`raycast_view_march`'s.  The
+    steps are taken :data:`MARCH_CHUNK` at a time as one batch of samples.
+
+    pose : (4, 4) camera-to-world.  -> (depth_m (H, W) f32 with 0 = no
+    surface, gray (H, W) f32).
+    """
+    h, w = shape
+    d, hh, ww = cfg.dims
+    dev = volume.tsdf.device
+    intrinsics, pose = _f32(intrinsics, dev), _f32(pose, dev)
+    phi_field = torch.where(volume.weight >= min_weight, volume.tsdf,
+                            torch.ones_like(volume.tsdf)).reshape(-1)
+    rays = pixel_rays(intrinsics, pose, shape)
+    t_in = volume_ray_entry(cfg, rays, max_depth).reshape(1, -1)
+
+    # A sample's voxel coordinates, base + slope * t along each ray.
+    vs = cfg.voxel_size
+    base = ((rays.origin - _f32(cfg.origin, dev)) / vs - 0.5).reshape(1, 3, 1)
+    slope = (torch.stack([rays.dwx, rays.dwy, rays.dwz]) / vs).reshape(1, 3, -1)
+    top = torch.tensor([ww - 1, hh - 1, d - 1], dtype=torch.float32, device=dev).reshape(1, 3, 1)
+    stride = torch.tensor([1, ww, hh * ww], dtype=torch.int64, device=dev).reshape(1, 3, 1)
+    dt = torch.tensor(step, dtype=torch.float32, device=dev)
+
+    found = torch.zeros(h * w, dtype=torch.bool, device=dev)
+    t_hit = torch.zeros(h * w, dtype=torch.float32, device=dev)
+    phi_prev = t_prev = None
+    for a in range(0, n_steps + 1 if n_steps > 0 else 0, MARCH_CHUNK):
+        i = torch.arange(a, min(a + MARCH_CHUNK, n_steps + 1), dtype=torch.float32, device=dev)
+        t = t_in + dt * i[:, None]  # (S, rays)
+        f = torch.round(base + slope * t[:, None, :])
+        inside = ((f >= 0.0) & (f <= top)).all(1)
+        flat = (torch.minimum(torch.clamp(f, min=0.0), top).long() * stride).sum(1)
+        phi = torch.where(inside, phi_field[flat], torch.ones_like(t))
+        if phi_prev is None:  # the entry sample has no predecessor
+            before, t_before, phi, t = phi[:-1], t[:-1], phi[1:], t[1:]
+        else:
+            before = torch.cat([phi_prev[None], phi[:-1]])
+            t_before = torch.cat([t_prev[None], t[:-1]])
+        # The first positive-to-negative crossing of the chunk.
+        crossing = (phi < 0.0) & (before >= 0.0)
+        order = torch.arange(phi.shape[0], device=dev)[:, None]
+        first = torch.where(crossing, order, phi.shape[0]).amin(0, keepdim=True)
+        new = (first[0] < phi.shape[0]) & ~found
+        first = torch.clamp(first, max=phi.shape[0] - 1)
+        p0, p1 = before.gather(0, first)[0], phi.gather(0, first)[0]
+        t0, t1 = t_before.gather(0, first)[0], t.gather(0, first)[0]
+        denom = torch.clamp(p0 - p1, min=1e-6)
+        t_hit = torch.where(new, t0 + (t1 - t0) * p0 / denom, t_hit)
+        found = found | new
+        phi_prev, t_prev = phi[-1], t[-1]
+    return _surface(cfg, rays, phi_field, volume.gray.reshape(-1), found.reshape(h, w),
+                    t_hit.reshape(h, w))
 
 
 def _host(x) -> np.ndarray:

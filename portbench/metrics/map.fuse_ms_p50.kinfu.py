@@ -1,0 +1,8 @@
+"""Device time (ms) of the kernels launched in ``map.fuse``, the median
+over the profiled frames."""
+
+from portbench.harness import map_trace
+
+
+def read(record):
+    return map_trace.fuse_ms_p50(record)
