@@ -1788,6 +1788,56 @@ def render_parts(card, cpu, splat: bool) -> dict:
             "ok": share >= MAPPING_RENDER_SHARE}
 
 
+# The fusion kernel at kinfu512.b1.desk's volume (portbench/configs/
+# fr1-kinfu512.json): 512^3 voxels over 3 m, the first camera 0.3 m before
+# the front face's centre, truncation 30 mm, weight cap 128.
+KINFU512 = dict(dims=(512, 512, 512), voxel_size=3.0 / 512, origin=(-1.5, -1.5, 0.3),
+                truncation=0.03, max_weight=128.0)
+KINFU512_FUSIONS = 4
+
+
+def check_tsdf_kernel(frames, poses, k, dev) -> dict:
+    """The dense fusion kernel against the plain version
+    (``tsdf.integrate_plain``) at KINFU512: the first KINFU512_FUSIONS
+    ``frames`` ((depth_m, gray) pairs) fused at ``poses`` (camera-to-world,
+    relative to the first) into two volumes, the three fields equal bit for
+    bit after each fusion and one launch a fusion; then the kernel's and
+    the plain version's time a fusion against ``roofline_map.fuse_bound_ms``
+    (the three fields of every voxel read and written, and the frame)."""
+    from dense_visual_odometry_torch.models import tsdf
+    from dense_visual_odometry_torch.ops.cuda.tsdf import integrate_volume
+    from dense_visual_odometry_torch.utils.lie import se3
+    from portbench import roofline_map
+
+    cfg = tsdf.TSDFConfig(**KINFU512)
+    vol, ref = tsdf.make_volume(cfg, dev), tsdf.make_volume(cfg, dev)
+    k_dev = torch.as_tensor(np.asarray(k, np.float32), device=dev)
+    first = np.linalg.inv(poses[0])
+    inputs = [tuple(torch.as_tensor(np.asarray(a, np.float32), device=dev) for a in frame)
+              + (torch.as_tensor(np.asarray(first @ pose, np.float32), device=dev),)
+              for frame, pose in zip(frames[:KINFU512_FUSIONS], poses[:KINFU512_FUSIONS])]
+    equal, launched = [], []
+    for depth_m, gray, pose in inputs:
+        before = integrate_volume.launches
+        tsdf.integrate(vol, depth_m, gray, k_dev, pose, cfg)
+        launched.append(integrate_volume.launches - before)
+        tsdf.integrate_plain(ref, depth_m, gray, k_dev, se3.inverse(pose), cfg)
+        torch.cuda.synchronize()
+        equal.append(all(bit_equal(a, b) for a, b in zip(vol, ref)))
+    depth_m, gray, pose = inputs[-1]
+    ms = time_ms(lambda: tsdf.integrate(vol, depth_m, gray, k_dev, pose, cfg), 20, dev)
+    plain_ms = time_ms(lambda: tsdf.integrate_plain(ref, depth_m, gray, k_dev,
+                                                    se3.inverse(pose), cfg), 5, dev)
+    voxels, pixels = int(np.prod(cfg.dims)), int(depth_m.numel())
+    bound_ms = roofline_map.fuse_bound_ms(voxels, pixels)
+    return {"phase": "kernel", "kernel": "tsdf_fuse", "dims": list(cfg.dims),
+            "frame": list(depth_m.shape), "fusions": len(inputs),
+            "observed_voxels": int((vol.weight > 0).sum()), "bit_equal": equal,
+            "launches": launched, "ok": all(equal) and launched == [1] * len(inputs),
+            "ms": ms, "plain_ms": plain_ms, "bytes": roofline_map.fuse_bytes(voxels, pixels),
+            "bound_ms": bound_ms, "bound_by": "bytes", "roofline_pct": 100.0 * bound_ms / ms}
+
+
 class _StepReads:
     """Counts the host reads of one ``FrameToModelTracker.step`` (the
     ``at``-th call) while installed."""
@@ -1827,6 +1877,7 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
     from dense_visual_odometry_torch.apps import reconstruct
     from dense_visual_odometry_torch.io.datasets import load_tum_sequence
     from dense_visual_odometry_torch.models import brick_tsdf, tsdf
+    from dense_visual_odometry_torch.ops.cuda.tsdf import integrate_volume
 
     cpu = torch.device("cpu")
     seq_dir, cam_yaml = root / "seq", root / "camera.yaml"
@@ -1840,6 +1891,7 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
     recs = {}
     for name in MAPPING_RUNS:
         before, _ = read_launches()
+        fusions = integrate_volume.launches
         t0 = time.perf_counter()
         with _StepReads(MAPPING_READS_AT) as probe:
             rec = reconstruct.run(reconstruct.parse_args(
@@ -1849,6 +1901,7 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
         s = rec.summary
         row = {k: v for k, v in s.items() if k != "step_ms"}
         row.update(wall_s=wall, launches={n: after[n] - before[n] for n in after},
+                   fusion_launches=integrate_volume.launches - fusions,
                    **mapping_errors(rec.poses, gt_poses, Path(s["output"]), rec.intrinsics,
                                     depth0))
         if name in TRACK_RUNS:
@@ -1882,6 +1935,12 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
             lambda: fuse(scratch, *frame, k_dev, pose_dev, rec.volume_config), 5, dev)
         out[f"fusion_{name}"] = row
 
+    # The fusion kernel against the plain version on the card at 512^3.
+    if dev.type == "cuda":
+        out["fusion_kernel"] = check_tsdf_kernel(recs["dense"].frames,
+                                                 recs["dense"].fused_poses,
+                                                 recs["dense"].intrinsics, dev)
+
     # Renders of the final volumes at frame 0's pose, card and CPU.
     eye = np.eye(4, dtype=np.float32)
     renders = {
@@ -1907,6 +1966,11 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
               f"[{smi}]", flush=True)
         print(f"mapping mesh {name}: {r['mesh_s']} s, {r['vertices']} vertices, {r['faces']} faces "
               f"[{smi}]", flush=True)
+    f = out.get("fusion_kernel")
+    if f is not None:
+        print(f"mapping fusion kernel at {f['dims']}: {f['ms']} ms a fusion against a "
+              f"{f['bound_ms']} ms bound ({f['roofline_pct']}%), plain {f['plain_ms']} ms, "
+              f"bit for bit {f['bit_equal']} [{smi}]", flush=True)
     b = out["runs"]["brick"]
     print(f"mapping bricks: {b['bricks_used']} used of {b['pool']}, {b['bricks_dropped']} dropped",
           flush=True)
@@ -1936,9 +2000,17 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
                                                         r["launches"]["fused_iter"]) < 1):
             raise AssertionError(f"mapping {name}: {r['failures']} failed solves, launches "
                                  f"{r['launches']}")
+        # The dense volume's fusions launch the fusion kernel, the brick's not.
+        dense = "brick" not in name
+        if dev.type == "cuda" and (r["fusion_launches"] > 0) != dense:
+            raise AssertionError(f"mapping {name}: {r['fusion_launches']} fusion kernel "
+                                 f"launches")
     for key in ("fusion_dense", "fusion_brick", *(f"render_{n}" for n in renders)):
         if not out[key]["ok"]:
             raise AssertionError(f"mapping {key}: the card and the CPU part: {out[key]}")
+    if dev.type == "cuda" and not out["fusion_kernel"]["ok"]:
+        raise AssertionError(f"mapping: the fusion kernel parts from the plain version: "
+                             f"{out['fusion_kernel']}")
     return out
 
 
@@ -2822,6 +2894,7 @@ def run_distributed(frames, poses, k_dev, grays, depths, k_np, dev, smi) -> dict
 def zero_launches() -> None:
     """Every launch count of the port's kernels to 0."""
     from dense_visual_odometry_torch.ops.cuda.pyramid import median_pyr_down
+    from dense_visual_odometry_torch.ops.cuda.tsdf import integrate_volume
 
     lm_level.launches = 0
     lm_level.block_launches = 0
@@ -2830,6 +2903,7 @@ def zero_launches() -> None:
         fn.launches = 0
         fn.runtime_stride_launches = 0
     median_pyr_down.launches = 0
+    integrate_volume.launches = 0
 
 
 def read_launches():

@@ -26,8 +26,9 @@ With the tracer on (``utils/profiling.py``) a step records ``session.step``
 (``streams=1``) around ``map.render`` (the raycast into the keyframe's
 pyramids), ``map.track`` (the frame's preprocessing and the solve, the
 tracker's ``track.*`` spans inside), ``sync.map`` (the pack's read) and
-``map.fuse``, and counts ``map.fused``, ``map.failed``, ``map.march_steps``
-(the volume march's steps) and ``map.voxels_fused`` (the voxels a fusion
+``map.fuse``, and counts ``map.fused``, ``map.fused_kernel`` (the fusions
+that launched the fusion kernel), ``map.failed``, ``map.march_steps`` (the
+volume march's steps) and ``map.voxels_fused`` (the voxels a fusion
 visits).
 """
 
@@ -60,6 +61,7 @@ from dense_visual_odometry_torch.models.tsdf import (
     volume_march_steps,
 )
 from dense_visual_odometry_torch.ops import pyramid as pyr_ops
+from dense_visual_odometry_torch.ops.cuda import tsdf as tsdf_kernel
 from dense_visual_odometry_torch.utils.lie import Pose, se3
 from dense_visual_odometry_torch.utils.profiling import count, trace_span
 
@@ -218,10 +220,12 @@ class FrameToModelTracker:
         return torch.tensor(np.asarray(m, np.float32), device=self.device)
 
     def _integrate(self, fd: FrameData, world: torch.Tensor) -> None:
+        launches = tsdf_kernel.integrate_volume.launches
         with trace_span("map.fuse"):
             _vol_integrate(self.volume, fd.depth_m[0], fd.gray[0], self._intrinsics, world,
                            self.tsdf_config)
         count("map.fused")
+        count("map.fused_kernel", tsdf_kernel.integrate_volume.launches - launches)
         count("map.voxels_fused", self._voxels_fused)
 
     def _march(self, world: np.ndarray):

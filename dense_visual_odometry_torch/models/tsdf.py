@@ -4,7 +4,8 @@ Counterpart of ``dense_visual_odometry_tpu/models/tsdf.py``:
 
 - the volume is a fixed-shape ``(D, H, W)`` NamedTuple of tensors (tsdf,
   weight, gray) on one device; :func:`integrate` updates it in place, where
-  the JAX package donates it to a jitted update;
+  the JAX package donates it to a jitted update: on the GPU one launch of
+  ``ops/cuda/csrc/tsdf_fuse.cu``, on the CPU :func:`integrate_plain`;
 - integration is gather-formulated: every voxel projects into the frame and
   samples depth and intensity at its nearest pixel (``torch.round``, half to
   even, as ``jnp.round``);
@@ -33,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from dense_visual_odometry_torch.models.robust import as_device_tensor, resolve_device
+from dense_visual_odometry_torch.ops.cuda import tsdf as tsdf_kernel
 from dense_visual_odometry_torch.utils.lie import se3
 
 
@@ -105,16 +107,22 @@ def _f32(x, device) -> torch.Tensor:
     return as_device_tensor(x, device).to(torch.float32)
 
 
-def _voxel_camera_coords(cfg: TSDFConfig, world_to_cam: torch.Tensor):
-    """Voxel centres in the camera frame: three (D, H, W) planes, built
-    separably (JAX ``tsdf.py:110``)."""
+def voxel_axes(cfg: TSDFConfig, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The voxel centres' world coordinates along x, y and z: (W,), (H,) and
+    (D,) float32 on ``device``."""
     d, h, w = cfg.dims
     vs = cfg.voxel_size
     ox, oy, oz = cfg.origin
-    dev = world_to_cam.device
-    xs = ox + (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) * vs
-    ys = oy + (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) * vs
-    zs = oz + (torch.arange(d, dtype=torch.float32, device=dev) + 0.5) * vs
+    xs = ox + (torch.arange(w, dtype=torch.float32, device=device) + 0.5) * vs
+    ys = oy + (torch.arange(h, dtype=torch.float32, device=device) + 0.5) * vs
+    zs = oz + (torch.arange(d, dtype=torch.float32, device=device) + 0.5) * vs
+    return xs, ys, zs
+
+
+def _voxel_camera_coords(cfg: TSDFConfig, world_to_cam: torch.Tensor):
+    """Voxel centres in the camera frame: three (D, H, W) planes, built
+    separably (JAX ``tsdf.py:110``)."""
+    xs, ys, zs = voxel_axes(cfg, world_to_cam.device)
     r = world_to_cam[:3, :3]
     t = world_to_cam[:3, 3]
 
@@ -165,6 +173,18 @@ def fuse(cfg, valid, sdf, trunc, tsdf_obs, gray_s, old_tsdf, old_w, old_gray):
     return tsdf_new, torch.clamp(w_new, max=cfg.max_weight), gray_new
 
 
+def integrate_plain(volume: TSDFVolume, depth_m, gray, intrinsics, world_to_cam,
+                    cfg: TSDFConfig) -> TSDFVolume:
+    """:func:`integrate` in plain PyTorch, on any device, from float32
+    tensors on the volume's device and the inverse pose ``world_to_cam``."""
+    xc, yc, zc = _voxel_camera_coords(cfg, world_to_cam)
+    obs = observe(cfg, xc, yc, zc, depth_m, gray, intrinsics)
+    new = fuse(cfg, *obs, volume.tsdf, volume.weight, volume.gray)
+    for field, value in zip(volume, new):
+        field.copy_(value)
+    return volume
+
+
 def integrate(
     volume: TSDFVolume,
     depth_m,
@@ -178,15 +198,19 @@ def integrate(
     depth_m : (H, W) metric depth, 0 = invalid.
     gray : (H, W) intensity in [0, 255].
     pose : (4, 4) camera-to-world.
+
+    A CPU volume takes :func:`integrate_plain`; any other goes to the
+    kernel (``ops/cuda/tsdf.py``), which takes CUDA volumes (float32,
+    contiguous) and raises on the rest.  The two agree bit for bit.
     """
     dev = volume.tsdf.device
     depth_m, gray = _f32(depth_m, dev), _f32(gray, dev)
     intrinsics, pose = _f32(intrinsics, dev), _f32(pose, dev)
-    xc, yc, zc = _voxel_camera_coords(cfg, se3.inverse(pose))
-    obs = observe(cfg, xc, yc, zc, depth_m, gray, intrinsics)
-    new = fuse(cfg, *obs, volume.tsdf, volume.weight, volume.gray)
-    for field, value in zip(volume, new):
-        field.copy_(value)
+    world_to_cam = se3.inverse(pose)
+    if dev.type == "cpu":
+        return integrate_plain(volume, depth_m, gray, intrinsics, world_to_cam, cfg)
+    tsdf_kernel.integrate_volume(volume, depth_m, gray, intrinsics, world_to_cam,
+                                 voxel_axes(cfg, dev), cfg)
     return volume
 
 

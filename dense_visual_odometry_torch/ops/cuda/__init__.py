@@ -5,7 +5,9 @@
   system, on the level kernel's inputs.
 - ``stackwarp``: the frozen window sampled at per-pixel displacements.
 - ``pyramid``: one image-pyramid step, the 3x3 median at the kept pixels.
+- ``tsdf``: one frame fused into a whole dense TSDF volume, in place.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
-version for CPU tensors; each counts its launches in ``<wrapper>.launches``.
+version for CPU tensors (``tsdf``'s caller, ``models/tsdf.py integrate``,
+does that for it); each counts its launches in ``<wrapper>.launches``.
 """

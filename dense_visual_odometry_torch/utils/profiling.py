@@ -156,12 +156,19 @@ def tracing() -> bool:
 def _launches() -> Dict[str, int]:
     # The tracker imports the kernel wrappers in an order free of import cycles.
     from dense_visual_odometry_torch.models import robust  # noqa: F401
-    from dense_visual_odometry_torch.ops.cuda import fused_iter, level_solver, pyramid, stackwarp
+    from dense_visual_odometry_torch.ops.cuda import (
+        fused_iter,
+        level_solver,
+        pyramid,
+        stackwarp,
+        tsdf,
+    )
 
     return {"lm_level.launches": level_solver.lm_level.launches,
             "fused_evaluation.launches": fused_iter.fused_evaluation.launches,
             "stack_accumulate.launches": stackwarp.stack_accumulate.launches,
-            "median_pyr_down.launches": pyramid.median_pyr_down.launches}
+            "median_pyr_down.launches": pyramid.median_pyr_down.launches,
+            "integrate_volume.launches": tsdf.integrate_volume.launches}
 
 
 def enable_tracing() -> None:

@@ -356,4 +356,5 @@ def test_drain_clears_and_caps(tracer, monkeypatch):
     assert {s["step"] for s in record["spans"]} == {record["spans"][0]["step"]}
     assert tp.drain() == {"spans": [], "counters": {
         "spans.dropped": 0, "lm_level.launches": 0, "fused_evaluation.launches": 0,
-        "stack_accumulate.launches": 0, "median_pyr_down.launches": 0}}
+        "stack_accumulate.launches": 0, "median_pyr_down.launches": 0,
+        "integrate_volume.launches": 0}}
