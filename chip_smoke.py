@@ -194,13 +194,8 @@ from dense_visual_odometry_torch.io import synthetic
 from dense_visual_odometry_torch.models import robust
 from dense_visual_odometry_torch.models.session import OdometrySession
 from dense_visual_odometry_torch.ops.cuda import build, fused_iter, level_solver
-from dense_visual_odometry_torch.ops.cuda.level_solver import (
-    level_inputs,
-    lm_level,
-    lm_level_plain,
-)
+from dense_visual_odometry_torch.ops.cuda.level_solver import lm_level, lm_level_plain
 from dense_visual_odometry_torch.ops.cuda.stackwarp import stack_accumulate
-from dense_visual_odometry_torch.ops.gradients import sobel
 from dense_visual_odometry_torch.ops.pyramid import median3x3
 from dense_visual_odometry_torch.ops.shiftwarp import residual_displacements, tent_sample
 from dense_visual_odometry_torch.parallel import batched_track_pair, stack_frame_data
@@ -607,11 +602,10 @@ def level_case(prev, curr, gt, cam, dev, level, illum, rel, cfg_name="tpu_fast",
     motion prior (``PRIOR_SIGMA``, the consistent or the reference's energy)
     toward ``anchors`` (B, 4, 4)."""
     cfg = config(cfg_name)
-    s = cfg.stride_for_level(level)
     k = cam.at(level).to(dev)
     est0 = start_estimates(gt, level)
     depth = term == "depth"
-    fl = robust.frozen_level(
+    lv = robust.prepare_level(
         prev.gray[level], prev.depth_m[level], curr.gray[level], k, est0, cfg, level,
         depth_curr=curr.depth_m[level] if depth else None,
     )
@@ -619,29 +613,17 @@ def level_case(prev, curr, gt, cam, dev, level, illum, rel, cfg_name="tpu_fast",
     wlam0 = torch.full((b,), 1.0 / cfg.weighter.initial_sigma**2, device=dev)
     relt = None if rel is None else torch.full((b,), rel, device=dev)
     anchor0 = anchors if term in ("prior", "prior_reference") else est0
-    points, scal = level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, anchor0, wlam0, relt, s)
+    inputs = robust.kernel_inputs(lv, est0, anchor0, wlam0, relt)
     kwargs = dict(
-        radius=cfg.shift_stack_radius, grid_stride=s,
+        robust.kernel_settings(cfg, level),
         image_h=curr.gray[level].shape[-2], image_w=curr.gray[level].shape[-1],
-        dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
-        use_tweights=cfg.use_weighter, normalize_scale=cfg.weighter.normalize_scale,
-        tolerance=cfg.tolerance, lm_lambda0=cfg.lm_lambda0, lm_up=cfg.lm_up,
-        lm_down=cfg.lm_down, lm_lambda_max=cfg.lm_lambda_max,
-        max_iterations=cfg.max_iterations_for_level(level),
         illum_bias=illum == "bias", illum_affine=illum == "affine",
     )
-    if hasattr(robust, "block_args"):  # a package older than row blocks has none
-        kwargs.update(robust.block_args(cfg, robust.level_plan(cfg, level)))
     if depth:
-        gzx, gzy = sobel(prev.depth_m[level])
-        kwargs.update(
-            depth_planes=fl.depth_planes,
-            zgrad=(torch.stack([gzx, gzy], dim=1) / 8.0)[..., ::s, ::s].contiguous(),
-            depth_weight=cfg.depth_weight, depth_huber_delta=cfg.depth_huber_delta,
-        )
+        kwargs.update(depth_planes=inputs.depth_planes, zgrad=inputs.zgrad)
     elif term is not None:
         kwargs.update(sigma=PRIOR_SIGMA, reference_prior_energy=term == "prior_reference")
-    return (fl.planes, points, fl.gray_prev, fl.jac_planes, scal), kwargs
+    return tuple(inputs[:5]), kwargs
 
 
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -788,9 +770,8 @@ def fused_case(prev, curr, gt, cam, dev, illum, level=0, cfg_name="tpu_fast"):
     the level kernel's (``level_case``), whose level-start pose and lambda it
     evaluates; -> (args, kwargs) of ``fused_evaluation``."""
     args, kwargs = level_case(prev, curr, gt, cam, dev, level, illum, None, cfg_name)
-    keep = ("radius", "grid_stride", "image_h", "image_w", "dof", "unroll", "use_tweights",
-            "normalize_scale", "illum_bias")
-    return args, {k: kwargs[k] for k in keep}
+    return args, dict(fused_iter.fused_settings(kwargs), image_h=kwargs["image_h"],
+                      image_w=kwargs["image_w"])
 
 
 def fused_agrees(out_k, out_p):
@@ -881,7 +862,7 @@ def stack_case(prev, curr, gt, cam, dev, level, cfg_name="tpu_parity"):
     k = cam.at(level).to(dev)
     est0 = start_estimates(gt, level)
     image = curr.gray[level]
-    fl = robust.frozen_level(
+    fl = robust.prepare_level(
         prev.gray[level], prev.depth_m[level], image, k, est0, cfg, level
     )
     image_h, image_w = image.shape[-2:]
@@ -2000,11 +1981,19 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
                                                         r["launches"]["fused_iter"]) < 1):
             raise AssertionError(f"mapping {name}: {r['failures']} failed solves, launches "
                                  f"{r['launches']}")
-        # The dense volume's fusions launch the fusion kernel, the brick's not.
-        dense = "brick" not in name
-        if dev.type == "cuda" and (r["fusion_launches"] > 0) != dense:
-            raise AssertionError(f"mapping {name}: {r['fusion_launches']} fusion kernel "
-                                 f"launches")
+        # A dense volume's fusions launch the fusion kernel, a brick volume's
+        # not: the output map's, one a frame unless it is bricks (``--brick``),
+        # and a dense tracking volume's besides (not ``--track-brick``).
+        flags = MAPPING_RUNS[name]
+        output = 0 if "--brick" in flags else r["fused_frames"]
+        launches = r["fusion_launches"]
+        if name in TRACK_RUNS and "--track-brick" not in flags:
+            expected = launches > output
+        else:
+            expected = launches == output
+        if dev.type == "cuda" and not expected:
+            raise AssertionError(f"mapping {name}: {launches} fusion kernel launches, "
+                                 f"{r['fused_frames']} frames in the output map")
     for key in ("fusion_dense", "fusion_brick", *(f"render_{n}" for n in renders)):
         if not out[key]["ok"]:
             raise AssertionError(f"mapping {key}: the card and the CPU part: {out[key]}")

@@ -3,9 +3,11 @@
 Counterpart of ``dense_visual_odometry_tpu/models/robust.py``: every
 evaluation mode, both loops, the hard-motion fallback, the retrack and the
 init selection with its scale ladder.  Per level (:func:`level_plan` fixes
-the branches from the configuration and the level), the solver:
+the branches from the configuration and the level, :func:`kernel_settings`
+the kernels' arguments), the solver:
 
-- builds the level's estimate-independent inputs: at a frozen-window level
+- builds the level's estimate-independent inputs once, as one value
+  (:func:`prepare_level`, a :class:`PreparedLevel`): at a frozen-window level
   (``freeze_shift_window`` on the fused path) the window of the current
   image, extracted once around an integer centre per element (or, on a
   level-kernel level without ESM, one per row block or 2-D tile,
@@ -23,12 +25,13 @@ the branches from the configuration and the level), the solver:
   is batch-global and fixed for the level: if any element is hard, the
   whole batch evaluates on the packed gather path ("packed_exact" with the
   current image's exact gradients, or "packed");
-- else evaluates in the level's mode: "fused" (one launch of the fused
-  kernel, ``ops/cuda/fused_iter.py``, on the frozen window or on one
-  recentred at the evaluated estimate, as at a level of blocks or tiles,
-  whose frozen windows only the level kernel reads), "shift" (the stack kernel),
-  "packed" (the f16-packed gather) or "plain" (bilinear sampling, exact or
-  precomputed Jacobian);
+- else evaluates in the level's mode, a function of that value and
+  (estimate, anchor, lambda) (:data:`EVALUATIONS`): "fused" (one launch of
+  the fused kernel, ``ops/cuda/fused_iter.py``, on the frozen window or on
+  one recentred at the evaluated estimate, as at a level of blocks or
+  tiles, whose frozen windows only the level kernel reads), "shift" (the
+  stack kernel), "packed" (the f16-packed gather) or "plain" (bilinear
+  sampling, exact or precomputed Jacobian);
 - adds to every evaluation the depth term (``use_depth_residuals``: the
   current depth sampled bilinearly at the warp against the warped point's
   depth, Huber-weighted, ``depth_residuals``) and then the motion prior
@@ -89,6 +92,7 @@ the JAX package's does.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -105,15 +109,14 @@ from dense_visual_odometry_torch.ops import gradients as grad_ops
 from dense_visual_odometry_torch.ops import interp as interp_ops
 from dense_visual_odometry_torch.ops import pyramid as pyr_ops
 from dense_visual_odometry_torch.ops.blockwarp import (
-    compute_recenter_blocks,
-    compute_recenter_tiles,
-    extract_parity_planes_blocks,
-    extract_parity_planes_tiles,
-    shift_coverage_blocks,
-    shift_coverage_tiles,
+    ONE_CENTRE,
+    Blocks,
+    window_centres,
+    window_coverage,
+    window_planes,
 )
 from dense_visual_odometry_torch.ops.cuda import stackwarp
-from dense_visual_odometry_torch.ops.cuda.fused_iter import fused_shift_iteration
+from dense_visual_odometry_torch.ops.cuda.fused_iter import fused_settings, fused_shift_iteration
 from dense_visual_odometry_torch.ops.cuda.level_solver import (
     LevelInputs,
     level_inputs,
@@ -131,10 +134,10 @@ from dense_visual_odometry_torch.ops.residuals import (
     warp_residuals_shift,
 )
 from dense_visual_odometry_torch.ops.shiftwarp import (
+    _grid_displacements,
     compute_recenter,
     extract_parity_planes,
     residual_displacements,
-    shift_coverage,
 )
 from dense_visual_odometry_torch.utils.lie import se3
 from dense_visual_odometry_torch.utils.profiling import count as trace_count
@@ -428,209 +431,6 @@ def _lm_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
     return est_acc, anchor_acc, wlam, diag
 
 
-def _use_esm(cfg: RobustDVOConfig, level: int) -> bool:
-    """Whether ``level`` takes ESM gradients."""
-    return (
-        cfg.use_esm_gradients
-        and cfg.approximate_image2_gradient
-        and (cfg.esm_levels is None or level in cfg.esm_levels)
-    )
-
-
-class LevelPlan(NamedTuple):
-    """The branches one level takes (the JAX package's ``_solve_level``
-    predicates), fixed by the configuration and the level alone."""
-
-    stride: int
-    shift_stack: bool  # the current image is sampled through a shift window
-    fused: bool  # the fused kernels evaluate the level
-    frozen: bool  # the window is extracted once, at the level's start
-    esm: bool
-    level_kernel: bool  # the LM loop runs in the level kernel
-    fallback: bool  # the hard-motion trigger may send the level to the gather path
-    default_mode: str  # "fused", "shift", "packed" or "plain"
-    tiles: bool  # the level kernel's windows: one per 2-D tile
-    blocks: bool  # the level kernel's windows: one per row block
-
-
-def level_plan(cfg: RobustDVOConfig, level: int) -> LevelPlan:
-    shift_stack = cfg.shift_stack_radius is not None and level in cfg.shift_stack_levels
-    fused = (
-        shift_stack
-        and cfg.use_fused_iteration
-        and cfg.approximate_image2_gradient
-        # Affine rides the level kernel only; its other evaluations are "shift".
-        and (
-            cfg.illumination in (None, "bias")
-            or (cfg.illumination == "affine" and cfg.use_level_kernel)
-        )
-    )
-    frozen = fused and cfg.freeze_shift_window
-    if shift_stack:
-        mode = "fused" if fused and cfg.illumination != "affine" else "shift"
-    else:
-        mode = "packed" if cfg.packed_sampling else "plain"
-    esm = _use_esm(cfg, level)
-    level_kernel = cfg.use_level_kernel and frozen and cfg.lm_lambda0 is not None
-    # Per-block and per-tile centres ride the level kernel alone, off ESM
-    # (JAX robust.py:822-841); tiles take precedence over row blocks.
-    tiles = (
-        level_kernel and not esm
-        and (cfg.recenter_col_blocks or 1) > 1 and cfg.recenter_blocks is not None
-    )
-    blocks = level_kernel and not esm and not tiles and (cfg.recenter_blocks or 1) > 1
-    return LevelPlan(
-        stride=cfg.stride_for_level(level),
-        shift_stack=shift_stack,
-        fused=fused,
-        frozen=frozen,
-        esm=esm,
-        level_kernel=level_kernel,
-        fallback=cfg.shift_stack_fallback
-        and (shift_stack or cfg.approximate_image2_gradient),
-        default_mode=mode,
-        tiles=tiles,
-        blocks=blocks,
-    )
-
-
-def block_args(cfg: RobustDVOConfig, plan: LevelPlan) -> dict:
-    """The level kernel's block arguments of a level (``n_blocks``,
-    ``n_blocks_x``, ``radius_y``; none with one centre)."""
-    if not (plan.tiles or plan.blocks):
-        return {}
-    radius_y = (
-        cfg.shift_stack_radius_y if cfg.shift_stack_radius_y is not None
-        else cfg.shift_stack_radius
-    )
-    return dict(n_blocks=cfg.recenter_blocks,
-                n_blocks_x=cfg.recenter_col_blocks if plan.tiles else 1, radius_y=radius_y)
-
-
-class FrozenLevel(NamedTuple):
-    """A level's estimate-independent inputs and its frozen window."""
-
-    gray_prev: torch.Tensor  # (B, H', W') template on the strided grid
-    depth_prev_m: torch.Tensor  # (B, H', W')
-    jac_planes: torch.Tensor  # (B, 6, H', W') Jacobian (ESM-averaged at ESM levels)
-    u0: torch.Tensor  # (B, H', W') warp at the level's starting estimate
-    v0: torch.Tensor
-    valid_geom0: torch.Tensor  # (B, H', W') depth-valid and in front
-    planes: torch.Tensor  # (B, s^2, ph, pw) frozen window; blocks: (B, blocks, s^2, ph, pw)
-    cu: torch.Tensor  # (B,) int32 window centre; (B, blocks) or tiles (B, nby, nbx)
-    cv: torch.Tensor
-    depth_planes: Optional[torch.Tensor] = None  # the current depth's window(s), as planes
-
-
-def frozen_level(
-    gray_prev: torch.Tensor,
-    depth_prev_m: torch.Tensor,
-    gray_curr: torch.Tensor,
-    intrinsics: torch.Tensor,
-    estimate0: torch.Tensor,
-    cfg: RobustDVOConfig,
-    level: int,
-    depth_curr: Optional[torch.Tensor] = None,
-) -> FrozenLevel:
-    """Sobel Jacobian planes on the strided grid, and the current image's
-    window extracted once around the recentring at ``estimate0`` (at a
-    level of row blocks or tiles, :func:`level_plan`, one window per block
-    around its own centre); with ``depth_curr`` (the depth term) the
-    current depth's window too, at the same centres.
-
-    At an ESM level the window is sampled once at ``estimate0`` (the stack
-    kernel); the Sobel gradient of that warped image is averaged with the
-    template's wherever its whole 3x3 support is valid, and the Jacobian
-    planes are built from the average.
-    """
-    plan = level_plan(cfg, level)
-    stride = plan.stride
-    radius = cfg.shift_stack_radius
-    sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
-    gx1, gy1 = grad_ops.sobel(gray_prev)
-    g1x_s = (gx1 / sgain)[..., ::stride, ::stride]
-    g1y_s = (gy1 / sgain)[..., ::stride, ::stride]
-    gray_prev = gray_prev[..., ::stride, ::stride].contiguous()
-    depth_prev_m = depth_prev_m[..., ::stride, ::stride].contiguous()
-    hp, wp = gray_prev.shape[-2], gray_prev.shape[-1]
-    _, u0, v0, vg0 = warp_geometry(depth_prev_m, intrinsics, estimate0, stride)
-    ba = block_args(cfg, plan)
-    if plan.tiles:
-        cu0, cv0 = compute_recenter_tiles(
-            u0, v0, radius, stride, ba["n_blocks"], ba["n_blocks_x"], vg0,
-            radius_y=ba["radius_y"], center_bound=cfg.recenter_center_bound,
-        )
-
-        def extract(img):
-            return extract_parity_planes_tiles(img, cu0, cv0, hp, wp, radius, stride,
-                                               ba["n_blocks"], ba["n_blocks_x"], ba["radius_y"])
-    elif plan.blocks:
-        cu0, cv0 = compute_recenter_blocks(
-            u0, v0, radius, stride, ba["n_blocks"], vg0, radius_y=ba["radius_y"]
-        )
-
-        def extract(img):
-            return extract_parity_planes_blocks(img, cu0, cv0, hp, wp, radius, stride,
-                                                ba["n_blocks"], ba["radius_y"])
-    else:
-        cu0, cv0 = compute_recenter(u0, v0, radius, stride, vg0)
-
-        def extract(img):
-            return extract_parity_planes(img, cu0, cv0, hp, wp, radius, stride)
-    planes0 = extract(gray_curr)
-    if plan.esm:
-        du0, dv0, in_ball0 = residual_displacements(
-            u0, v0, cu0, cv0, radius, stride, gray_curr.shape[-2], gray_curr.shape[-1]
-        )
-        val0 = in_ball0 & vg0
-        acc0 = stackwarp.stack_accumulate(
-            planes0, du0.contiguous(), dv0.contiguous(), radius, stride
-        )
-        gwx, gwy = grad_ops.sobel(torch.where(val0, acc0, torch.zeros_like(acc0)))
-        # Sobel on the strided grid measures d/d(grid step): divide by the
-        # stride for d/d(full-resolution pixel), as the template's.
-        gwx = gwx / (sgain * stride)
-        gwy = gwy / (sgain * stride)
-        okw = _erode3(val0)
-        g1x_s = torch.where(okw, 0.5 * (g1x_s + gwx), g1x_s)
-        g1y_s = torch.where(okw, 0.5 * (g1y_s + gwy), g1y_s)
-    jac_planes = approximate_jacobian_planes(
-        depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
-    )
-    depth_planes = None if depth_curr is None else extract(depth_curr)
-    return FrozenLevel(
-        gray_prev, depth_prev_m, jac_planes, u0, v0, vg0, planes0, cu0, cv0, depth_planes
-    )
-
-
-def _template_gradients(
-    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level, esm=False,
-):
-    """The template's Sobel gradients (``gray_prev`` and ``depth_prev_m`` at
-    full resolution) on the level's strided grid, from which the
-    precomputed Jacobian is built.
-
-    With ``esm`` (the ESM branch off the fused kernels), the current
-    image's gradients, sampled nearest once at the level-start warp of the
-    full-resolution grid, are averaged in wherever that sample is valid.
-    The JAX package builds the Jacobian at full resolution and strides it;
-    built on the strided grid from these its values are the same.
-    """
-    stride = cfg.stride_for_level(level)
-    sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
-    gx1, gy1 = grad_ops.sobel(gray_prev)
-    g1x, g1y = gx1 / sgain, gy1 / sgain
-    if esm:
-        gx2, gy2 = grad_ops.sobel(gray_curr)
-        packed_g2 = interp_ops.pack_pair_f16(gx2 / sgain, gy2 / sgain)
-        _, u0f, v0f, vg0f = warp_geometry(depth_prev_m, intrinsics, estimate0, 1)
-        g2x, g2y, ok2 = interp_ops.nearest_sample_packed(packed_g2, u0f, v0f)
-        okm = vg0f & ok2
-        g1x = torch.where(okm, 0.5 * (g1x + g2x), g1x)
-        g1y = torch.where(okm, 0.5 * (g1y + g2y), g1y)
-    return g1x[..., ::stride, ::stride], g1y[..., ::stride, ::stride]
-
-
 def _gn_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
     """Gauss-Newton over a batch with per-element stopping (``lm_lambda0``
     unset), the reference's semantics: the tolerance test comes before the
@@ -697,6 +497,504 @@ def _gn_loop(evaluate, estimate0, anchor0, cfg, rel_eff, max_iterations):
     return estimate, anchor, wlam, diag
 
 
+def _use_esm(cfg: RobustDVOConfig, level: int) -> bool:
+    """Whether ``level`` takes ESM gradients."""
+    return (
+        cfg.use_esm_gradients
+        and cfg.approximate_image2_gradient
+        and (cfg.esm_levels is None or level in cfg.esm_levels)
+    )
+
+
+class LevelPlan(NamedTuple):
+    """The branches one level takes (the JAX package's ``_solve_level``
+    predicates), fixed by the configuration and the level alone."""
+
+    stride: int
+    shift_stack: bool  # the current image is sampled through a shift window
+    fused: bool  # the fused kernels evaluate the level
+    frozen: bool  # the window is extracted once, at the level's start
+    esm: bool
+    level_kernel: bool  # the LM loop runs in the level kernel
+    fallback: bool  # the hard-motion trigger may send the level to the gather path
+    default_mode: str  # "fused", "shift", "packed" or "plain"
+    windows: Blocks  # the window centres: one, or (level kernel) per row block or tile
+
+    @property
+    def one_window(self) -> bool:
+        """A frozen window around one centre, which the fused kernel reads
+        too.  Elsewhere it reads a window recentred at each evaluated
+        estimate, as the JAX package does at a level of blocks or tiles
+        (whose frozen windows only the level kernel reads; JAX
+        robust.py:811-812, :578)."""
+        return self.frozen and not (self.windows.tiles or self.windows.rows)
+
+
+def level_plan(cfg: RobustDVOConfig, level: int) -> LevelPlan:
+    shift_stack = cfg.shift_stack_radius is not None and level in cfg.shift_stack_levels
+    fused = (
+        shift_stack
+        and cfg.use_fused_iteration
+        and cfg.approximate_image2_gradient
+        # Affine rides the level kernel only; its other evaluations are "shift".
+        and (
+            cfg.illumination in (None, "bias")
+            or (cfg.illumination == "affine" and cfg.use_level_kernel)
+        )
+    )
+    frozen = fused and cfg.freeze_shift_window
+    if shift_stack:
+        mode = "fused" if fused and cfg.illumination != "affine" else "shift"
+    else:
+        mode = "packed" if cfg.packed_sampling else "plain"
+    esm = _use_esm(cfg, level)
+    level_kernel = cfg.use_level_kernel and frozen and cfg.lm_lambda0 is not None
+    # Per-block and per-tile centres ride the level kernel alone, off ESM
+    # (JAX robust.py:822-841); tiles take precedence over row blocks.
+    blocked = level_kernel and not esm
+    tiles = blocked and (cfg.recenter_col_blocks or 1) > 1 and cfg.recenter_blocks is not None
+    windows = ONE_CENTRE
+    if tiles or (blocked and (cfg.recenter_blocks or 1) > 1):
+        windows = Blocks(
+            n_blocks=cfg.recenter_blocks,
+            n_blocks_x=cfg.recenter_col_blocks if tiles else 1,
+            radius_y=(cfg.shift_stack_radius if cfg.shift_stack_radius_y is None
+                      else cfg.shift_stack_radius_y),
+            center_bound=cfg.recenter_center_bound if tiles else None,
+        )
+    return LevelPlan(
+        stride=cfg.stride_for_level(level),
+        shift_stack=shift_stack,
+        fused=fused,
+        frozen=frozen,
+        esm=esm,
+        level_kernel=level_kernel,
+        fallback=cfg.shift_stack_fallback
+        and (shift_stack or cfg.approximate_image2_gradient),
+        default_mode=mode,
+        windows=windows,
+    )
+
+
+def kernel_settings(cfg: RobustDVOConfig, level: int) -> dict:
+    """The level kernel's keyword arguments at ``level`` under ``cfg``, by
+    ``level_solver.lm_level``'s names (the Pallas kernel's): window radius
+    and grid stride, t-weights, stopping rule and LM damping, illumination,
+    motion prior, the depth term's weight and threshold, and the level's row
+    blocks or tiles.  The image size and the inputs are the caller's;
+    ``fused_iter.fused_settings`` projects out the fused kernel's."""
+    plan = level_plan(cfg, level)
+    return dict(
+        radius=cfg.shift_stack_radius, grid_stride=plan.stride,
+        dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
+        use_tweights=cfg.use_weighter, normalize_scale=cfg.weighter.normalize_scale,
+        tolerance=cfg.tolerance, lm_lambda0=cfg.lm_lambda0, lm_up=cfg.lm_up,
+        lm_down=cfg.lm_down, lm_lambda_max=cfg.lm_lambda_max,
+        max_iterations=cfg.max_iterations_for_level(level),
+        illum_bias=cfg.illumination == "bias", illum_affine=cfg.illumination == "affine",
+        sigma=cfg.sigma, reference_prior_energy=cfg.reference_prior_energy,
+        depth_weight=cfg.depth_weight, depth_huber_delta=cfg.depth_huber_delta,
+        n_blocks=plan.windows.n_blocks, n_blocks_x=plan.windows.n_blocks_x,
+        radius_y=plan.windows.radius_y,
+    )
+
+
+class PreparedLevel(NamedTuple):
+    """What a level's evaluations read that does not depend on the
+    evaluated estimate, built once (:func:`prepare_level`).  A field the
+    level's plan does not use is None."""
+
+    cfg: RobustDVOConfig
+    level: int
+    plan: LevelPlan
+    settings: dict  # the kernels' keyword arguments (kernel_settings)
+    intrinsics: torch.Tensor  # the level's, (3, 3) or (B, 3, 3)
+    gray_prev: torch.Tensor  # (B, H', W') template on the strided grid
+    depth_prev_m: torch.Tensor  # (B, H', W')
+    gray_curr: torch.Tensor  # (B, H, W) current image
+    depth_curr_m: Optional[torch.Tensor]  # (B, H, W) current depth, for the depth term
+    u0: Optional[torch.Tensor]  # (B, H', W') warp at the level's starting estimate
+    v0: Optional[torch.Tensor]
+    valid_geom0: Optional[torch.Tensor]  # (B, H', W') depth-valid and in front
+    planes: Optional[torch.Tensor]  # frozen window (B, s^2, ph, pw); (B, blocks, s^2, ph, pw)
+    cu: Optional[torch.Tensor]  # (B,) int32 window centre; (B, blocks) or tiles (B, nby, nbx)
+    cv: Optional[torch.Tensor]
+    depth_planes: Optional[torch.Tensor]  # the current depth's window(s), as planes
+    jac_planes: Optional[torch.Tensor]  # (B, 6, H', W') fused kernels' Jacobian (ESM-averaged)
+    pre_jac: Optional[torch.Tensor]  # (B, H', W', 6) the template's, for the other evaluations
+    grads: Optional[Tuple[torch.Tensor, torch.Tensor]]  # the current image's exact gradients
+    grads_packed: Optional[torch.Tensor]  # the same, packed as an f16 pair
+    gray_curr_packed: Optional[torch.Tensor]  # the current image packed (pack_neighbors)
+    grads_z: Optional[Tuple[torch.Tensor, torch.Tensor]]  # the previous depth's, strided
+    eye6: torch.Tensor  # (6, 6) identity: the motion prior's Hessian
+    fused_in: Optional[LevelInputs] = None  # the fused kernel's inputs, set before its use
+
+
+def _image_gradients(image: torch.Tensor, cfg: RobustDVOConfig):
+    """Sobel gradients of ``image`` per full-resolution pixel (raw with
+    ``raw_sobel_gain``)."""
+    sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
+    gx, gy = grad_ops.sobel(image)
+    return gx / sgain, gy / sgain
+
+
+def _template_gradients(
+    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level, esm=False,
+):
+    """The template's Sobel gradients (``gray_prev`` and ``depth_prev_m`` at
+    full resolution) on the level's strided grid, from which the
+    precomputed Jacobian is built.
+
+    With ``esm`` (the ESM branch off the fused kernels), the current
+    image's gradients, sampled nearest once at the level-start warp of the
+    full-resolution grid, are averaged in wherever that sample is valid.
+    The JAX package builds the Jacobian at full resolution and strides it;
+    built on the strided grid from these its values are the same.
+    """
+    stride = cfg.stride_for_level(level)
+    g1x, g1y = _image_gradients(gray_prev, cfg)
+    if esm:
+        packed_g2 = interp_ops.pack_pair_f16(*_image_gradients(gray_curr, cfg))
+        _, u0f, v0f, vg0f = warp_geometry(depth_prev_m, intrinsics, estimate0, 1)
+        g2x, g2y, ok2 = interp_ops.nearest_sample_packed(packed_g2, u0f, v0f)
+        okm = vg0f & ok2
+        g1x = torch.where(okm, 0.5 * (g1x + g2x), g1x)
+        g1y = torch.where(okm, 0.5 * (g1y + g2y), g1y)
+    return g1x[..., ::stride, ::stride], g1y[..., ::stride, ::stride]
+
+
+def _esm_window_gradients(cfg, plan, g1, planes, u0, v0, vg0, cu, cv, image_hw):
+    """ESM's average at a frozen level: the window sampled once at the
+    level-start warp (the stack kernel), its Sobel gradient averaged with
+    the template's ``g1`` wherever its whole 3x3 support is valid."""
+    s, radius = plan.stride, cfg.shift_stack_radius
+    sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
+    du0, dv0, in_ball0 = residual_displacements(u0, v0, cu, cv, radius, s, *image_hw)
+    val0 = in_ball0 & vg0
+    acc0 = stackwarp.stack_accumulate(planes, du0.contiguous(), dv0.contiguous(), radius, s)
+    gwx, gwy = grad_ops.sobel(torch.where(val0, acc0, torch.zeros_like(acc0)))
+    # Sobel on the strided grid measures d/d(grid step): divide by the
+    # stride for d/d(full-resolution pixel), as the template's.
+    gwx = gwx / (sgain * s)
+    gwy = gwy / (sgain * s)
+    okw = _erode3(val0)
+    g1x, g1y = g1
+    return torch.where(okw, 0.5 * (g1x + gwx), g1x), torch.where(okw, 0.5 * (g1y + gwy), g1y)
+
+
+def prepare_level(
+    gray_prev: torch.Tensor,
+    depth_prev_m: torch.Tensor,
+    gray_curr: torch.Tensor,
+    intrinsics: torch.Tensor,
+    estimate0: torch.Tensor,
+    cfg: RobustDVOConfig,
+    level: int,
+    depth_curr: Optional[torch.Tensor] = None,
+) -> PreparedLevel:
+    """A level's estimate-independent inputs, from the template, its depth
+    and the current image at full resolution (B, H, W), the level's
+    intrinsics and its starting estimate (B, 4, 4): the template on the
+    strided grid and its Sobel gradients, each once; the warp at
+    ``estimate0`` where the frozen window or the hard-motion trigger reads
+    it; at a frozen-window level the current image's window(s) around the
+    warp's centres (one, per row block or per tile: :func:`level_plan`) and
+    the fused kernels' Jacobian planes; the template's precomputed Jacobian
+    or the current image's exact gradients, and the packed images, as the
+    level's evaluations take them.  With ``depth_curr`` (the depth term)
+    the previous depth's gradients and the current depth's windows, at the
+    same centres.
+
+    At an ESM level the Jacobian planes hold ESM's average
+    (:func:`_esm_window_gradients`); affine's "shift" evaluations take the
+    template's own Jacobian, without the average, beside the level kernel's
+    planes.
+    """
+    plan = level_plan(cfg, level)
+    s = plan.stride
+    radius = cfg.shift_stack_radius
+    approx = cfg.approximate_image2_gradient
+    gp = gray_prev[..., ::s, ::s].contiguous()
+    dp = depth_prev_m[..., ::s, ::s].contiguous()
+    hp, wp = gp.shape[-2], gp.shape[-1]
+    # The template's gradients, with ESM's average off the fused kernels
+    # (theirs is the frozen window's, below).
+    g1 = (
+        _template_gradients(gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg,
+                            level, esm=plan.esm and not plan.fused)
+        if approx else None
+    )
+    u0 = v0 = vg0 = None
+    if plan.frozen or plan.fallback:
+        _, u0, v0, vg0 = warp_geometry(dp, intrinsics, estimate0, s)
+    planes = cu = cv = depth_planes = jac_planes = None
+    g_planes = g1
+    if plan.frozen:
+        cu, cv = window_centres(u0, v0, radius, s, vg0, plan.windows)
+        planes = window_planes(gray_curr, cu, cv, hp, wp, radius, s, plan.windows)
+        if depth_curr is not None:
+            depth_planes = window_planes(depth_curr, cu, cv, hp, wp, radius, s, plan.windows)
+        if plan.esm:
+            g_planes = _esm_window_gradients(cfg, plan, g1, planes, u0, v0, vg0, cu, cv,
+                                             gray_curr.shape[-2:])
+    if plan.frozen or plan.default_mode == "fused":
+        jac_planes = approximate_jacobian_planes(dp, intrinsics, *g_planes, grid_stride=s)
+    pre_jac = None
+    if approx and (not plan.fused or cfg.illumination == "affine"):
+        pre_jac = approximate_jacobian(dp, intrinsics, *g1, grid_stride=s)
+    grads = None if approx else _image_gradients(gray_curr, cfg)
+    grads_packed = None
+    if grads is not None and (cfg.packed_sampling or plan.shift_stack):
+        grads_packed = interp_ops.pack_pair_f16(*grads)
+    gray_curr_packed = (
+        interp_ops.pack_neighbors(gray_curr) if plan.default_mode == "packed" else None
+    )
+    grads_z = None
+    if depth_curr is not None:
+        # Always divided by the Sobel gain, raw_sobel_gain or not, as in the
+        # JAX package: d(depth)/d(full-resolution pixel) at the grid points.
+        gzx, gzy = grad_ops.sobel(depth_prev_m)
+        grads_z = ((gzx / _SOBEL_GAIN)[..., ::s, ::s], (gzy / _SOBEL_GAIN)[..., ::s, ::s])
+    eye6 = torch.eye(6, dtype=torch.float32, device=estimate0.device)
+    return PreparedLevel(
+        cfg=cfg, level=level, plan=plan, settings=kernel_settings(cfg, level),
+        intrinsics=intrinsics, gray_prev=gp, depth_prev_m=dp, gray_curr=gray_curr,
+        depth_curr_m=depth_curr, u0=u0, v0=v0, valid_geom0=vg0, planes=planes, cu=cu, cv=cv,
+        depth_planes=depth_planes, jac_planes=jac_planes, pre_jac=pre_jac, grads=grads,
+        grads_packed=grads_packed, gray_curr_packed=gray_curr_packed, grads_z=grads_z,
+        eye6=eye6,
+    )
+
+
+def kernel_inputs(lv: PreparedLevel, estimate0, anchor0, wlam0, rel=None) -> LevelInputs:
+    """The level kernel's inputs at a frozen level: its window(s), the
+    template points and the scalar row (``level_solver.level_inputs``: the
+    level's start, the window centres, the relative tolerance ``rel`` (B,)
+    or None) and, with the depth term, the current depth's windows and the
+    previous depth's gradients."""
+    points, scal = level_inputs(lv.cu, lv.cv, lv.depth_prev_m, lv.intrinsics, estimate0,
+                                anchor0, wlam0, rel, lv.plan.stride)
+    zgrad = None if lv.grads_z is None else torch.stack(lv.grads_z, dim=1)
+    return LevelInputs(lv.planes, points, lv.gray_prev, lv.jac_planes, scal, lv.depth_planes,
+                       zgrad)
+
+
+def fused_inputs(lv: PreparedLevel, estimate0, anchor0, wlam0) -> LevelInputs:
+    """The fused kernel's inputs: the frozen window and its centre at a
+    one-window level; elsewhere none, the centres zero (each evaluation
+    recentres one at its estimate, :func:`_eval_fused`)."""
+    if lv.plan.one_window:
+        planes, cu, cv = lv.planes, lv.cu, lv.cv
+    else:
+        planes = None
+        cu = cv = torch.zeros((estimate0.shape[0],), dtype=torch.int32, device=estimate0.device)
+    points, scal = level_inputs(cu, cv, lv.depth_prev_m, lv.intrinsics, estimate0, anchor0,
+                                wlam0, None, lv.plan.stride)
+    return LevelInputs(planes, points, lv.gray_prev, lv.jac_planes, scal)
+
+
+def _with_fused_inputs(lv: PreparedLevel, mode: str, estimate0, anchor0, wlam0) -> PreparedLevel:
+    """``lv`` with the fused kernel's inputs where ``mode`` reads them and
+    it has none yet (the level kernel's path hands its own over)."""
+    if mode != "fused" or lv.fused_in is not None:
+        return lv
+    return lv._replace(fused_in=fused_inputs(lv, estimate0, anchor0, wlam0))
+
+
+def _with_gather(lv: PreparedLevel) -> PreparedLevel:
+    """``lv`` with what the hard-motion path samples, each built here unless
+    the level has it: the current image packed, and its exact gradients
+    packed (where the level's Jacobian is the template's)."""
+    packed, grads_packed = lv.gray_curr_packed, lv.grads_packed
+    if grads_packed is None:
+        grads_packed = interp_ops.pack_pair_f16(*_image_gradients(lv.gray_curr, lv.cfg))
+    if packed is None:
+        packed = interp_ops.pack_neighbors(lv.gray_curr)
+    return lv._replace(gray_curr_packed=packed, grads_packed=grads_packed)
+
+
+def _reduce_system(cfg, gray_prev, res, jac, valid, weight_lambda):
+    """Illumination pre-fit, IRLS weights, normal equations and the
+    illumination Schur of one evaluation at the strided grid.  -> (H, b,
+    err, count, lambda)."""
+    tpl_c = None
+    illum_affine = cfg.illumination == "affine"
+    if cfg.illumination is not None:
+        # Remove the best unweighted illumination fit before the robust
+        # weights; the Schur step then eliminates the weighted rest.
+        nv = torch.clamp(valid.sum(dim=(-2, -1)).to(torch.float32), min=1.0)
+        zero = torch.zeros_like(res)
+        mu_r = torch.where(valid, res, zero).sum(dim=(-2, -1)) / nv
+        res = torch.where(valid, res - mu_r[:, None, None], zero)
+        if illum_affine:
+            tpl_mu = torch.where(valid, gray_prev, zero).sum(dim=(-2, -1)) / nv
+            tpl_c = torch.where(valid, gray_prev - tpl_mu[:, None, None], zero)
+            alpha = (tpl_c * res).sum(dim=(-2, -1)) / torch.clamp(
+                (tpl_c * tpl_c).sum(dim=(-2, -1)), min=1e-6
+            )
+            res = res - alpha[:, None, None] * tpl_c
+    if cfg.use_weighter:
+        weights, weight_lambda = t_distribution_weights_with_scale(
+            res * res, valid, cfg.weighter, event_ndim=2,
+            init_lambda=weight_lambda if cfg.weighter.warm_start else None,
+        )
+    else:
+        weights = valid.to(torch.float32)
+    sys = normal_equations(res, jac, weights, valid)
+    if cfg.illumination == "bias":
+        sys = _bias_schur(sys, res, jac, weights)
+    elif illum_affine:
+        sys = _affine_schur(sys, res, jac, weights, tpl_c)
+    return sys.hessian, sys.rhs, sys.error, sys.count, weight_lambda
+
+
+def _with_terms(lv: PreparedLevel, system, estimate, anchor):
+    """The depth term, then the motion prior, added to a reduced
+    photometric ``system`` (H, b, err, count, lambda), as the JAX package's
+    evaluations add them.  -> (H, b, err, count, H without the prior,
+    lambda)."""
+    hess, rhs, err, count, lam = system
+    cfg = lv.cfg
+    if cfg.use_depth_residuals:
+        res_z, jac_z, valid_z = depth_residuals(
+            lv.depth_prev_m, lv.depth_curr_m, lv.intrinsics, estimate, *lv.grads_z,
+            grid_stride=lv.plan.stride,
+        )
+        w_z = huber_weights(res_z * res_z, valid_z, delta=cfg.depth_huber_delta)
+        sys_z = normal_equations(res_z, jac_z, w_z, valid_z)
+        hess = hess + cfg.depth_weight * sys_z.hessian
+        rhs = rhs + cfg.depth_weight * sys_z.rhs
+        err = err + cfg.depth_weight * sys_z.error
+    measured = hess
+    if cfg.sigma is not None:
+        log_old = se3.log(anchor)
+        inv_cov = 1.0 / cfg.sigma
+        hess = hess + inv_cov * lv.eye6
+        rhs = rhs + inv_cov * log_old
+        err = err + _prior_energy(cfg, log_old)
+    return hess, rhs, err, count, measured, lam
+
+
+def _sampled(lv: PreparedLevel, sample, estimate, anchor, wlam):
+    """An evaluation from its sampled (residuals, Jacobian, validity)."""
+    system = _reduce_system(lv.cfg, lv.gray_prev, *sample, wlam)
+    return _with_terms(lv, system, estimate, anchor)
+
+
+# The evaluation modes: each (level, estimate, anchor, lambda) -> (H, b,
+# err, count, H without the prior, lambda).
+
+def _eval_fused(lv: PreparedLevel, estimate, anchor, wlam):
+    """One launch of the fused kernel on ``lv.fused_in``: the frozen window,
+    or (``freeze_shift_window`` off, or blocks or tiles) the window
+    recentred at ``estimate``.  The kernel reduces the photometric term."""
+    inputs = lv.fused_in
+    s, radius = lv.plan.stride, lv.cfg.shift_stack_radius
+    if not lv.plan.one_window:
+        hp, wp = lv.gray_prev.shape[-2], lv.gray_prev.shape[-1]
+        _, u, v, vg = warp_geometry(lv.depth_prev_m, lv.intrinsics, estimate, s)
+        cu, cv = compute_recenter(u, v, radius, s, vg)
+        planes = extract_parity_planes(lv.gray_curr, cu, cv, hp, wp, radius, s)
+        inputs = with_window(inputs, planes, cu, cv)
+    system = fused_shift_iteration(
+        inputs, estimate, wlam, image_h=lv.gray_curr.shape[-2], image_w=lv.gray_curr.shape[-1],
+        **fused_settings(lv.settings),
+    )
+    return _with_terms(lv, system, estimate, anchor)
+
+
+def _eval_shift(lv: PreparedLevel, estimate, anchor, wlam):
+    """The current image sampled through the window recentred at
+    ``estimate`` (the stack kernel)."""
+    return _sampled(lv, warp_residuals_shift(
+        lv.gray_prev, lv.depth_prev_m, lv.gray_curr, lv.intrinsics, estimate,
+        grads_packed=lv.grads_packed, precomputed_jacobian=lv.pre_jac,
+        grid_stride=lv.plan.stride, radius=lv.cfg.shift_stack_radius,
+    ), estimate, anchor, wlam)
+
+
+def _eval_packed(lv: PreparedLevel, estimate, anchor, wlam):
+    """The f16-packed gather with the level's Jacobian: the template's, or
+    the current image's exact gradients."""
+    return _sampled(lv, warp_residuals_packed(
+        lv.gray_prev, lv.depth_prev_m, lv.gray_curr_packed, lv.intrinsics, estimate,
+        grads_packed=lv.grads_packed, precomputed_jacobian=lv.pre_jac,
+        grid_stride=lv.plan.stride,
+    ), estimate, anchor, wlam)
+
+
+def _eval_packed_exact(lv: PreparedLevel, estimate, anchor, wlam):
+    """The f16-packed gather with the current image's exact gradients: the
+    hard-motion path of a level whose Jacobian is the template's."""
+    return _sampled(lv, warp_residuals_packed(
+        lv.gray_prev, lv.depth_prev_m, lv.gray_curr_packed, lv.intrinsics, estimate,
+        grads_packed=lv.grads_packed, grid_stride=lv.plan.stride,
+    ), estimate, anchor, wlam)
+
+
+def _eval_plain(lv: PreparedLevel, estimate, anchor, wlam):
+    """Bilinear sampling, with the template's Jacobian or the current
+    image's exact gradients."""
+    gx, gy = lv.grads if lv.grads is not None else (None, None)
+    return _sampled(lv, warp_residuals(
+        lv.gray_prev, lv.depth_prev_m, lv.gray_curr, lv.intrinsics, estimate, gx, gy,
+        precomputed_jacobian=lv.pre_jac, grid_stride=lv.plan.stride,
+    ), estimate, anchor, wlam)
+
+
+EVALUATIONS = {"fused": _eval_fused, "shift": _eval_shift, "packed": _eval_packed,
+               "packed_exact": _eval_packed_exact, "plain": _eval_plain}
+
+
+def _hard_motion(lv: PreparedLevel, estimate0, force_hard):
+    """The hard-motion trigger's per-element flags at the level's start ->
+    (hard (B,), the tracer's counts or None).  Its terms: shift-ball
+    coverage of the centres the level will use (one, per block or per
+    tile), and with the template's Jacobian the rotation angle and, at the
+    coarsest level, the RMS displacement.  ``force_hard``: the retrack's
+    streams, hard whatever the terms say."""
+    cfg, plan = lv.cfg, lv.plan
+    s = plan.stride
+    u0, v0, vg0 = lv.u0, lv.v0, lv.valid_geom0
+    r = cfg.shift_stack_radius if cfg.shift_stack_radius is not None else 4
+    cov = window_coverage(u0, v0, r, s, vg0, plan.windows)
+    terms = [cov < cfg.shift_fallback_min_coverage, None, None]
+    if cfg.approximate_image2_gradient:
+        rot = estimate0[:, :3, :3]
+        cos_t = 0.5 * (torch.diagonal(rot, dim1=-2, dim2=-1).sum(-1) - 1.0)
+        theta = torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
+        # ESM's Jacobian is half evaluated at the level-start warp, so a
+        # relaxed rotation threshold may apply there.
+        max_rot = (
+            cfg.esm_fallback_max_rotation
+            if plan.esm and cfg.esm_fallback_max_rotation is not None
+            else cfg.fallback_max_rotation
+        )
+        terms[1] = theta > max_rot
+        if lv.level == cfg.levels - 1:
+            du, dv = _grid_displacements(u0, v0, s)
+            mf = vg0.to(torch.float32)
+            denom = torch.clamp(torch.sum(mf, dim=(-2, -1)), min=1.0)
+            rms = torch.sqrt(torch.sum((du * du + dv * dv) * mf, dim=(-2, -1)) / denom)
+            terms[2] = rms > cfg.fallback_max_displacement
+    hard = terms[0]
+    for term in terms[1:]:
+        if term is not None:
+            hard = hard | term
+    counts = None
+    if tracing():
+        # Read back with the predicate: the streams each term flags, and
+        # the streams whose result needs the gather path (a retrack
+        # cascade's: the retracked ones).
+        kept = hard if force_hard is None else force_hard
+        counts = [kept.sum()] + [
+            hard.new_zeros((), dtype=torch.int64) if t is None else t.sum() for t in terms
+        ]
+    if force_hard is not None:
+        hard = hard | force_hard
+    return hard, counts
+
+
 def _solve_level(
     gray_prev: torch.Tensor,
     depth_prev_m: torch.Tensor,
@@ -722,139 +1020,14 @@ def _solve_level(
             raise ValueError("use_depth_residuals needs depth_curr_m")
         b = estimate0.shape[0]
         dev = estimate0.device
-        plan = level_plan(cfg, level)
-        stride = plan.stride
-        radius = cfg.shift_stack_radius
-        approx = cfg.approximate_image2_gradient
-        sgain = 1.0 if cfg.raw_sobel_gain else _SOBEL_GAIN
-        illum_bias = cfg.illumination == "bias"
-        illum_affine = cfg.illumination == "affine"
-        image_h, image_w = gray_curr.shape[-2], gray_curr.shape[-1]
-        gray_prev_full, depth_prev_full = gray_prev, depth_prev_m
-
         with trace_span("level.inputs"):
-            # Estimate-independent inputs, once per level.
-            fl = None  # the frozen window and the fused kernels' Jacobian planes
-            jac_planes = None  # (B, 6, H', W') of the fused kernels
-            pre_jac = None  # (B, H', W', 6) of the other evaluations
-            grads = None  # exact mode: the current image's gradients
-            if plan.frozen:
-                fl = frozen_level(
-                    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level,
-                    depth_curr=depth_curr_m if cfg.use_depth_residuals else None,
-                )
-                gray_prev, depth_prev_m, jac_planes = fl.gray_prev, fl.depth_prev_m, fl.jac_planes
-            else:
-                gray_prev = gray_prev_full[..., ::stride, ::stride].contiguous()
-                depth_prev_m = depth_prev_full[..., ::stride, ::stride].contiguous()
-            hp, wp = gray_prev.shape[-2], gray_prev.shape[-1]
-            grads_z = None  # the previous depth's gradients on the strided grid
-            if cfg.use_depth_residuals:
-                # Always divided by the Sobel gain, raw_sobel_gain or not, as in the
-                # JAX package: d(depth)/d(full-resolution pixel) at the grid points.
-                gzx, gzy = grad_ops.sobel(depth_prev_full)
-                grads_z = (
-                    (gzx / _SOBEL_GAIN)[..., ::stride, ::stride],
-                    (gzy / _SOBEL_GAIN)[..., ::stride, ::stride],
-                )
-            if not approx:
-                gx2, gy2 = grad_ops.sobel(gray_curr)
-                grads = (gx2 / sgain, gy2 / sgain)
-            elif fl is None or illum_affine:
-                # ESM at a fused level averages into the frozen window's planes
-                # (the configuration requires the frozen window there); affine's
-                # "shift" Jacobian is the template's own.
-                g1x_s, g1y_s = _template_gradients(
-                    gray_prev_full, depth_prev_full, gray_curr, intrinsics, estimate0, cfg,
-                    level, esm=plan.esm and not plan.fused,
-                )
-                if not plan.fused or illum_affine:
-                    # Affine's "shift" evaluations take the template's own Jacobian,
-                    # without ESM's average, beside the level kernel's planes.
-                    pre_jac = approximate_jacobian(
-                        depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
-                    )
-                if plan.default_mode == "fused" and fl is None:
-                    jac_planes = approximate_jacobian_planes(
-                        depth_prev_m, intrinsics, g1x_s, g1y_s, grid_stride=stride
-                    )
-            # The packed image of the "packed" mode (the fallback packs its own).
-            gray_curr_packed = (
-                interp_ops.pack_neighbors(gray_curr) if plan.default_mode == "packed" else None
+            lv = prepare_level(
+                gray_prev, depth_prev_m, gray_curr, intrinsics, estimate0, cfg, level,
+                depth_curr=depth_curr_m if cfg.use_depth_residuals else None,
             )
-            grads_packed = (
-                interp_ops.pack_pair_f16(*grads)
-                if grads is not None and (cfg.packed_sampling or plan.shift_stack)
-                else None
-            )
-
-            def fallback_trigger():
-                """-> the terms of the per-element hard-motion flags at the
-                level's start, (coverage, rotation, displacement): shift-ball
-                coverage, and with the template's Jacobian the rotation angle
-                and, at the coarsest level, the RMS displacement (None where
-                a term does not apply)."""
-                if fl is not None:
-                    u0, v0, vg0 = fl.u0, fl.v0, fl.valid_geom0
-                else:
-                    _, u0, v0, vg0 = warp_geometry(depth_prev_m, intrinsics, estimate0, stride)
-                r = radius if radius is not None else 4
-                # The coverage of the centres the level will use.
-                ba = block_args(cfg, plan)
-                if plan.tiles:
-                    cov = shift_coverage_tiles(
-                        u0, v0, r, stride, ba["n_blocks"], ba["n_blocks_x"], vg0,
-                        radius_y=ba["radius_y"], center_bound=cfg.recenter_center_bound,
-                    )
-                elif plan.blocks:
-                    cov = shift_coverage_blocks(u0, v0, r, stride, ba["n_blocks"], vg0,
-                                                radius_y=ba["radius_y"])
-                else:
-                    cov = shift_coverage(u0, v0, r, stride, coord_mask=vg0)
-                hard_cov = cov < cfg.shift_fallback_min_coverage
-                if not approx:
-                    return hard_cov, None, None
-                rot = estimate0[:, :3, :3]
-                cos_t = 0.5 * (torch.diagonal(rot, dim1=-2, dim2=-1).sum(-1) - 1.0)
-                theta = torch.arccos(torch.clamp(cos_t, -1.0, 1.0))
-                # ESM's Jacobian is half evaluated at the level-start warp, so a
-                # relaxed rotation threshold may apply there.
-                max_rot = (
-                    cfg.esm_fallback_max_rotation
-                    if plan.esm and cfg.esm_fallback_max_rotation is not None
-                    else cfg.fallback_max_rotation
-                )
-                hard_rot = theta > max_rot
-                hard_rms = None
-                if level == cfg.levels - 1:
-                    col = torch.arange(wp, dtype=torch.float32, device=dev) * stride
-                    row = torch.arange(hp, dtype=torch.float32, device=dev) * stride
-                    du = u0 - col[None, :]
-                    dv = v0 - row[:, None]
-                    mf = vg0.to(torch.float32)
-                    denom = torch.clamp(torch.sum(mf, dim=(-2, -1)), min=1.0)
-                    rms = torch.sqrt(torch.sum((du * du + dv * dv) * mf, dim=(-2, -1)) / denom)
-                    hard_rms = rms > cfg.fallback_max_displacement
-                return hard_cov, hard_rot, hard_rms
-
+            plan = lv.plan
             if plan.fallback:
-                terms = fallback_trigger()
-                hard0 = terms[0]
-                for term in terms[1:]:
-                    if term is not None:
-                        hard0 = hard0 | term
-                counts = None
-                if tracing():
-                    # Read back with the predicate: the streams each term
-                    # flags, and the streams whose result needs the gather
-                    # path (a retrack cascade's: the retracked ones).
-                    kept = hard0 if force_hard is None else force_hard
-                    counts = [kept.sum()] + [
-                        hard0.new_zeros((), dtype=torch.int64) if t is None else t.sum()
-                        for t in terms
-                    ]
-                if force_hard is not None:
-                    hard0 = hard0 | force_hard
+                hard0, counts = _hard_motion(lv, estimate0, force_hard)
 
         rel_eff = cfg.relative_tolerance
         need_fb = False
@@ -878,169 +1051,22 @@ def _solve_level(
         wlam_init = torch.full(
             (b,), 1.0 / (cfg.weighter.initial_sigma**2), dtype=torch.float32, device=dev
         )
-        level_in = None  # the fused kernels' inputs (LevelInputs), built once
-        # The fused kernel reads one window centre: a level of blocks or tiles
-        # recentres it at each evaluated estimate, as the JAX package does there
-        # (its frozen window is None; JAX robust.py:811-812, :578).
-        one_window = fl is not None and not (plan.blocks or plan.tiles)
-
-        def fused_inputs(estimate) -> LevelInputs:
-            """The fused kernel's inputs for an evaluation of ``estimate``: the
-            frozen window, or (``freeze_shift_window`` off, or blocks or tiles)
-            the window recentred at ``estimate``."""
-            nonlocal level_in
-            if level_in is None:
-                zero = torch.zeros((b,), dtype=torch.int32, device=dev)
-                cu, cv = (fl.cu, fl.cv) if one_window else (zero, zero)
-                points, scal = level_inputs(
-                    cu, cv, depth_prev_m, intrinsics, estimate0, prior_anchor0, wlam_init,
-                    None, stride,
-                )
-                level_in = LevelInputs(
-                    fl.planes if one_window else None, points, gray_prev, jac_planes, scal
-                )
-            if one_window:
-                return level_in
-            _, u, v, vg = warp_geometry(depth_prev_m, intrinsics, estimate, stride)
-            cu, cv = compute_recenter(u, v, radius, stride, vg)
-            planes = extract_parity_planes(gray_curr, cu, cv, hp, wp, radius, stride)
-            return with_window(level_in, planes, cu, cv)
-
-        def reduce_evaluation(res, jac, valid, weight_lambda):
-            """Illumination pre-fit, IRLS weights, normal equations and the
-            illumination Schur of one evaluation at the strided grid."""
-            tpl_c = None
-            if cfg.illumination is not None:
-                # Remove the best unweighted illumination fit before the robust
-                # weights; the Schur step then eliminates the weighted rest.
-                nv = torch.clamp(valid.sum(dim=(-2, -1)).to(torch.float32), min=1.0)
-                zero = torch.zeros_like(res)
-                mu_r = torch.where(valid, res, zero).sum(dim=(-2, -1)) / nv
-                res = torch.where(valid, res - mu_r[:, None, None], zero)
-                if illum_affine:
-                    tpl_mu = torch.where(valid, gray_prev, zero).sum(dim=(-2, -1)) / nv
-                    tpl_c = torch.where(valid, gray_prev - tpl_mu[:, None, None], zero)
-                    alpha = (tpl_c * res).sum(dim=(-2, -1)) / torch.clamp(
-                        (tpl_c * tpl_c).sum(dim=(-2, -1)), min=1e-6
-                    )
-                    res = res - alpha[:, None, None] * tpl_c
-            if cfg.use_weighter:
-                weights, weight_lambda = t_distribution_weights_with_scale(
-                    res * res, valid, cfg.weighter, event_ndim=2,
-                    init_lambda=weight_lambda if cfg.weighter.warm_start else None,
-                )
-            else:
-                weights = valid.to(torch.float32)
-            sys = normal_equations(res, jac, weights, valid)
-            if illum_bias:
-                sys = _bias_schur(sys, res, jac, weights)
-            elif illum_affine:
-                sys = _affine_schur(sys, res, jac, weights, tpl_c)
-            return sys.hessian, sys.rhs, sys.error, sys.count, weight_lambda
-
-        eye6 = torch.eye(6, dtype=torch.float32, device=dev)
-
-        def add_terms(hess, rhs, err, estimate, anchor):
-            """The depth term, then the motion prior, added to a reduced
-            photometric system, as the JAX package's evaluations add them.
-            -> (H, b, err, H without the prior)."""
-            if cfg.use_depth_residuals:
-                res_z, jac_z, valid_z = depth_residuals(
-                    depth_prev_m, depth_curr_m, intrinsics, estimate, grads_z[0], grads_z[1],
-                    grid_stride=stride,
-                )
-                w_z = huber_weights(res_z * res_z, valid_z, delta=cfg.depth_huber_delta)
-                sys_z = normal_equations(res_z, jac_z, w_z, valid_z)
-                hess = hess + cfg.depth_weight * sys_z.hessian
-                rhs = rhs + cfg.depth_weight * sys_z.rhs
-                err = err + cfg.depth_weight * sys_z.error
-            measured = hess
-            if cfg.sigma is not None:
-                log_old = se3.log(anchor)
-                inv_cov = 1.0 / cfg.sigma
-                hess = hess + inv_cov * eye6
-                rhs = rhs + inv_cov * log_old
-                err = err + _prior_energy(cfg, log_old)
-            return hess, rhs, err, measured
-
-        def eval_mode(mode, estimate, anchor, weight_lambda, fb_prep):
-            """One evaluation -> (H, b, err, count, H without the prior,
-            lambda)."""
-            if mode == "fused":
-                # The fused kernel reduces the photometric term; the depth term
-                # and the prior are added here, as the JAX package adds them.
-                hess, rhs, err, count, lam = fused_shift_iteration(
-                    fused_inputs(estimate), estimate, weight_lambda, radius=radius,
-                    grid_stride=stride, image_h=image_h, image_w=image_w,
-                    dof=cfg.weighter.dof, unroll=cfg.weighter.unroll_iterations or 3,
-                    use_tweights=cfg.use_weighter,
-                    normalize_scale=cfg.weighter.normalize_scale, illum_bias=illum_bias,
-                )
-            else:
-                res, jac, valid = sample_mode(mode, estimate, fb_prep)
-                hess, rhs, err, count, lam = reduce_evaluation(res, jac, valid, weight_lambda)
-            hess, rhs, err, measured = add_terms(hess, rhs, err, estimate, anchor)
-            return hess, rhs, err, count, measured, lam
-
-        def sample_mode(mode, estimate, fb_prep):
-            """The residuals, Jacobian and validity of ``mode`` at ``estimate``."""
-            if mode == "shift":
-                res, jac, valid = warp_residuals_shift(
-                    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
-                    grads_packed=grads_packed, precomputed_jacobian=pre_jac,
-                    grid_stride=stride, radius=radius,
-                )
-            elif mode == "packed":
-                # As the fallback's mode (exact gradients) it samples the
-                # fallback's packed image with the level's own gradients.
-                res, jac, valid = warp_residuals_packed(
-                    gray_prev, depth_prev_m,
-                    gray_curr_packed if fb_prep is None else fb_prep[0],
-                    intrinsics, estimate, grads_packed=grads_packed,
-                    precomputed_jacobian=pre_jac, grid_stride=stride,
-                )
-            elif mode == "packed_exact":
-                res, jac, valid = warp_residuals_packed(
-                    gray_prev, depth_prev_m, fb_prep[0], intrinsics, estimate,
-                    grads_packed=fb_prep[1], grid_stride=stride,
-                )
-            elif pre_jac is not None:
-                res, jac, valid = warp_residuals(
-                    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
-                    precomputed_jacobian=pre_jac, grid_stride=stride,
-                )
-            else:
-                res, jac, valid = warp_residuals(
-                    gray_prev, depth_prev_m, gray_curr, intrinsics, estimate,
-                    grads[0], grads[1], grid_stride=stride,
-                )
-            return res, jac, valid
-
         # The mode is fixed for the level: the hard-motion path samples through
         # the packed gather (with exact gradients where the level's Jacobian is
-        # the template's), built once.
+        # the template's).
         mode = plan.default_mode
         if need_fb:
-            mode = "packed_exact" if approx else "packed"
+            mode = "packed_exact" if cfg.approximate_image2_gradient else "packed"
         on_kernel = plan.level_kernel and not need_fb
         if tracing():
             path = ("kernel" if on_kernel
                     else f"{'lm' if cfg.lm_lambda0 is not None else 'gn'}.{mode}")
             level_span.set(path=path)
             trace_count(f"levels.{path}")
-        fb_prep = None
-
-        def evaluate(estimate, anchor, weight_lambda):
-            return eval_mode(mode, estimate, anchor, weight_lambda, fb_prep)
 
         with trace_span("level.solve"):
             if need_fb:
-                gfb = None
-                if approx:
-                    gx2, gy2 = grad_ops.sobel(gray_curr)
-                    gfb = interp_ops.pack_pair_f16(gx2 / sgain, gy2 / sgain)
-                fb_prep = (interp_ops.pack_neighbors(gray_curr), gfb)
-            max_iter = cfg.max_iterations_for_level(level)
+                lv = _with_gather(lv)
             if on_kernel:
                 rel = (
                     None if rel_eff is None
@@ -1048,43 +1074,29 @@ def _solve_level(
                         torch.as_tensor(rel_eff, dtype=torch.float32, device=dev), (b,)
                     )
                 )
-                est, anchor, wlam, err, count, its, inputs = solve_level_fused(
-                    fl.planes, fl.cu, fl.cv, depth_prev_m, gray_prev, jac_planes, intrinsics,
-                    estimate0, prior_anchor0, wlam_init, rel,
-                    image_h=image_h, image_w=image_w, radius=radius,
-                    grid_stride=stride, dof=cfg.weighter.dof,
-                    unroll=cfg.weighter.unroll_iterations or 3,
-                    use_tweights=cfg.use_weighter,
-                    normalize_scale=cfg.weighter.normalize_scale,
-                    tolerance=cfg.tolerance, lm_lambda0=cfg.lm_lambda0,
-                    lm_up=cfg.lm_up, lm_down=cfg.lm_down,
-                    lm_lambda_max=cfg.lm_lambda_max, max_iterations=max_iter,
-                    illum_bias=illum_bias, illum_affine=illum_affine,
-                    depth_planes=fl.depth_planes,
-                    zgrad=None if grads_z is None else torch.stack(grads_z, dim=1),
-                    sigma=cfg.sigma, reference_prior_energy=cfg.reference_prior_energy,
-                    depth_weight=cfg.depth_weight, depth_huber_delta=cfg.depth_huber_delta,
-                    **block_args(cfg, plan),
+                inputs = kernel_inputs(lv, estimate0, prior_anchor0, wlam_init, rel)
+                est, anchor, wlam, err, count, its = solve_level_fused(
+                    inputs, gray_curr.shape[-2], gray_curr.shape[-1], **lv.settings
                 )
-                if one_window:
-                    level_in = inputs
                 diag = LevelDiagnostics(
                     iterations=its, error=err, count=count,
                     scale=torch.rsqrt(torch.clamp(wlam, min=1e-20)),
                 )
-            elif cfg.lm_lambda0 is not None:
-                est, anchor, wlam, diag = _lm_loop(
-                    evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
-                )
+                if plan.one_window:
+                    lv = lv._replace(fused_in=inputs)
             else:
-                est, anchor, wlam, diag = _gn_loop(
-                    evaluate, estimate0, prior_anchor0, cfg, rel_eff, max_iter
+                lv = _with_fused_inputs(lv, mode, estimate0, prior_anchor0, wlam_init)
+                loop = _lm_loop if cfg.lm_lambda0 is not None else _gn_loop
+                est, anchor, wlam, diag = loop(
+                    partial(EVALUATIONS[mode], lv), estimate0, prior_anchor0, cfg, rel_eff,
+                    cfg.max_iterations_for_level(level),
                 )
         if not want_hessian:
             return est, diag, torch.zeros((b, 6, 6), dtype=torch.float32, device=dev)
         # The photometric Hessian at the returned estimate, re-evaluated once.
         with trace_span("level.hessian"):
-            return est, diag, evaluate(est, anchor, wlam)[4]
+            lv = _with_fused_inputs(lv, mode, estimate0, prior_anchor0, wlam_init)
+            return est, diag, EVALUATIONS[mode](lv, est, anchor, wlam)[4]
 
 
 def _box2(x: torch.Tensor) -> torch.Tensor:

@@ -21,11 +21,17 @@ mosaic: it extracts one window per block at that block's own centre,
 (``shiftwarp.WindowLayout``), and samples each grid pixel from its block's
 window at its place in the block (``shiftwarp.tent_sample``, the kernels'
 ``dvo::tent_sample``).
+
+A level's centres are one value, :class:`Blocks` (one centre, row blocks or
+tiles); :func:`window_centres`, :func:`window_coverage` and
+:func:`window_planes` take it and call the one-centre, row-block or tile
+function (:func:`window_planes` is the counterpart of both extraction
+functions).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,9 +40,36 @@ from dense_visual_odometry_torch.ops.shiftwarp import (
     WindowLayout,
     _grid_displacements,
     block_layout,
+    compute_recenter,
+    extract_parity_planes,
+    shift_coverage,
     tile_layout,
     window_layout,
 )
+
+
+class Blocks(NamedTuple):
+    """Where a level's window centres sit: one per element (the default),
+    one per row block (``n_blocks`` > 1), or one per 2-D tile
+    (``n_blocks_x`` > 1: ``n_blocks`` x ``n_blocks_x``).  ``radius_y``: the
+    vertical tap radius of blocks and tiles (None: the horizontal one);
+    ``center_bound``: the clip of the tiles' centres (None: 4 max(r, r_y))."""
+
+    n_blocks: int = 1
+    n_blocks_x: int = 1
+    radius_y: Optional[int] = None
+    center_bound: Optional[int] = None
+
+    @property
+    def tiles(self) -> bool:
+        return self.n_blocks_x > 1
+
+    @property
+    def rows(self) -> bool:
+        return not self.tiles and self.n_blocks > 1
+
+
+ONE_CENTRE = Blocks()
 
 
 def _mask(u: torch.Tensor, coord_mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -229,39 +262,43 @@ def extract_windows(
     return vals.reshape(b, nblk, s * s, layout.ph, layout.pw).contiguous()
 
 
-def extract_parity_planes_blocks(
-    image: torch.Tensor,
-    cu: torch.Tensor,
-    cv: torch.Tensor,
-    grid_hp: int,
-    grid_wp: int,
-    radius: int,
-    grid_stride: int = 1,
-    n_blocks: int = 1,
-    radius_y: Optional[int] = None,
-) -> torch.Tensor:
-    """Row-block windows: image (B, H, W), cu / cv (B, blocks) ->
-    (B, blocks, s^2, t + 2 r_y // s, W' + 2 r // s) (:func:`extract_windows`)."""
-    layout = window_layout(grid_hp, grid_wp, radius, grid_stride, n_blocks, 1, radius_y)
-    return extract_windows(image, cu, cv, layout, grid_stride)
+def window_centres(u, v, radius: int, grid_stride: int, coord_mask: torch.Tensor,
+                   blocks: Blocks = ONE_CENTRE) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int32 centres of ``blocks``' windows: (B,) with one centre
+    (``shiftwarp.compute_recenter``), (B, blocks) with row blocks, (B, nby,
+    nbx) with tiles."""
+    if blocks.tiles:
+        return compute_recenter_tiles(u, v, radius, grid_stride, blocks.n_blocks,
+                                      blocks.n_blocks_x, coord_mask, blocks.radius_y,
+                                      blocks.center_bound)
+    if blocks.rows:
+        return compute_recenter_blocks(u, v, radius, grid_stride, blocks.n_blocks, coord_mask,
+                                       blocks.radius_y)
+    return compute_recenter(u, v, radius, grid_stride, coord_mask)
 
 
-def extract_parity_planes_tiles(
-    image: torch.Tensor,
-    cu: torch.Tensor,
-    cv: torch.Tensor,
-    grid_hp: int,
-    grid_wp: int,
-    radius: int,
-    grid_stride: int = 1,
-    n_blocks_y: int = 1,
-    n_blocks_x: int = 1,
-    radius_y: Optional[int] = None,
-) -> torch.Tensor:
-    """Tile windows: image (B, H, W), cu / cv (B, nby, nbx) ->
-    (B, nby*nbx, s^2, t_y + 2 r_y // s, t_x + 2 r // s)
-    (:func:`extract_windows`).  The JAX package's ``center_bound`` sizes
-    its padding; these windows need none."""
-    layout = window_layout(grid_hp, grid_wp, radius, grid_stride, n_blocks_y, n_blocks_x,
-                           radius_y)
-    return extract_windows(image, cu, cv, layout, grid_stride)
+def window_coverage(u, v, radius: int, grid_stride: int, coord_mask: torch.Tensor,
+                    blocks: Blocks = ONE_CENTRE) -> torch.Tensor:
+    """(B,) fraction of the pixels of ``coord_mask`` that ``blocks``'
+    centres keep inside the ball: what the hard-motion trigger judges."""
+    if blocks.tiles:
+        return shift_coverage_tiles(u, v, radius, grid_stride, blocks.n_blocks,
+                                    blocks.n_blocks_x, coord_mask, blocks.radius_y,
+                                    blocks.center_bound)
+    if blocks.rows:
+        return shift_coverage_blocks(u, v, radius, grid_stride, blocks.n_blocks, coord_mask,
+                                     blocks.radius_y)
+    return shift_coverage(u, v, radius, grid_stride, coord_mask)
+
+
+def window_planes(image: torch.Tensor, cu: torch.Tensor, cv: torch.Tensor, grid_hp: int,
+                  grid_wp: int, radius: int, grid_stride: int,
+                  blocks: Blocks = ONE_CENTRE) -> torch.Tensor:
+    """The windows of ``image`` around :func:`window_centres`' centres:
+    (B, s^2, ph, pw) with one centre (``shiftwarp.extract_parity_planes``),
+    else (B, blocks, s^2, ph, pw) (:func:`extract_windows`)."""
+    if blocks.tiles or blocks.rows:
+        layout = window_layout(grid_hp, grid_wp, radius, grid_stride, blocks.n_blocks,
+                               blocks.n_blocks_x, blocks.radius_y)
+        return extract_windows(image, cu, cv, layout, grid_stride)
+    return extract_parity_planes(image, cu, cv, grid_hp, grid_wp, radius, grid_stride)

@@ -17,7 +17,8 @@ masks, tent taps of the frozen window, residual against the template,
 optional bias centring, t-scale fixed point, IRLS weights, the weighted
 normal equations and the bias Schur.  :func:`fused_shift_iteration` wraps
 it for the solver: the level-0 Hessian at the solved pose, on the level's
-own inputs.
+own inputs.  Its settings are a projection of the level kernel's
+(:func:`fused_settings`).
 """
 
 from __future__ import annotations
@@ -46,6 +47,15 @@ OUT_COLS = 48
 # evaluation reads its inputs once: one wave of clusters beats two waves of
 # larger ones (PERF.md).
 FUSED_KERNEL = ClusterKernel("fused_iter", 1, one_wave=True)
+# The level kernel's settings that the fused kernel takes too, by name.
+FUSED_SETTINGS = ("radius", "grid_stride", "dof", "unroll", "use_tweights", "normalize_scale",
+                  "illum_bias")
+
+
+def fused_settings(settings: dict) -> dict:
+    """The fused kernel's keyword arguments among ``settings``, the level
+    kernel's (``level_solver.lm_level``'s names)."""
+    return {name: settings[name] for name in FUSED_SETTINGS}
 
 
 def fused_evaluation_plain(
@@ -154,10 +164,10 @@ def fused_shift_iteration(
     illum_bias: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """One fused evaluation of ``est`` (B, 4, 4) with the t-scale
-    warm-started at ``wlam`` (B,), on the inputs a level solve ran on
-    (``level_solver.solve_level_fused``): its frozen window, template
-    points, template and Jacobian planes; only the pose and lambda of the
-    scalar row change.  -> (hessian (B, 6, 6), rhs (B, 6), error (B,),
+    warm-started at ``wlam`` (B,), on a level's inputs
+    (``level_solver.LevelInputs``): its frozen window, template points,
+    template and Jacobian planes; only the pose and lambda of the scalar row
+    change.  -> (hessian (B, 6, 6), rhs (B, 6), error (B,),
     count (B,), lambda (B,))."""
     b = est.shape[0]
     scal = torch.cat(

@@ -452,6 +452,8 @@ def lm_level_plain(
     dev = points.device
     rel = scal[:, 39]
     layout = window_layout(hp, wp, radius, grid_stride, n_blocks, n_blocks_x, radius_y)
+    check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius,
+                 depth_planes, zgrad, layout)
 
     def evaluate(est, anchor, wlam):
         h21, rhs, err, count, lam = level_evaluation(
@@ -799,6 +801,8 @@ def _launch(planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
     depth = depth_planes is not None
     b, _, hp, wp = points.shape
     layout = window_layout(hp, wp, radius, grid_stride, n_blocks, n_blocks_x, radius_y)
+    check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius,
+                 depth_planes, zgrad, layout)
     if geometry is None:
         geometry = launch_geometry(points, grid_stride, illum_bias, illum_affine, depth=depth,
                                    centres=centre_floats(layout))
@@ -889,17 +893,14 @@ def lm_level(
     Huber ``depth_huber_delta``); ``sigma`` the motion prior toward the
     anchor of ``scal`` (``reference_prior_energy``: the reference's energy
     term), as ``lm_level_pallas`` takes them.  CUDA tensors run the kernel,
-    CPU tensors the plain version."""
-    hp, wp = points.shape[-2], points.shape[-1]
-    layout = window_layout(hp, wp, radius, grid_stride, n_blocks, n_blocks_x, radius_y)
+    CPU tensors the plain version; each checks its inputs first
+    (:func:`check_inputs`)."""
     args = (planes, points, gray_prev, jac_planes, scal, radius, grid_stride,
             image_h, image_w, dof, unroll, use_tweights, normalize_scale,
             tolerance, lm_lambda0, lm_up, lm_down, lm_lambda_max,
             max_iterations, illum_bias, illum_affine, depth_planes, zgrad, sigma,
             reference_prior_energy, depth_weight, depth_huber_delta, n_blocks, n_blocks_x,
             radius_y)
-    check_inputs(planes, points, gray_prev, jac_planes, scal, grid_stride, radius,
-                 depth_planes, zgrad, layout)
     if points.device.type == "cuda":
         return _launch(*args)
     if points.device.type == "cpu":
@@ -979,16 +980,16 @@ def level_inputs(
 
 
 class LevelInputs(NamedTuple):
-    """The level kernel's inputs as :func:`solve_level_fused` passed them;
-    the fused kernel evaluates a pose on the first five, with one window
-    centre (it has no depth term, row blocks or tiles)."""
+    """The level kernel's inputs: the first five are :func:`lm_level`'s
+    arguments, on which the fused kernel also evaluates a pose (with one
+    window centre: it has no depth term, row blocks or tiles)."""
 
     planes: torch.Tensor
     points: torch.Tensor
     gray_prev: torch.Tensor
     jac_planes: torch.Tensor
     scal: torch.Tensor
-    depth_planes: Optional[torch.Tensor] = None  # (B, s^2, ph, pw) current depth window
+    depth_planes: Optional[torch.Tensor] = None  # the current depth's window(s), as planes
     zgrad: Optional[torch.Tensor] = None  # (B, 2, H', W') previous depth's gradients
 
 
@@ -1003,82 +1004,17 @@ def with_window(
     return inputs._replace(planes=planes, scal=scal)
 
 
-def solve_level_fused(
-    planes: torch.Tensor,
-    cu: torch.Tensor,
-    cv: torch.Tensor,
-    depth_prev_m: torch.Tensor,
-    gray_prev: torch.Tensor,
-    jac_planes: torch.Tensor,
-    intrinsics: torch.Tensor,
-    estimate0: torch.Tensor,
-    anchor0: torch.Tensor,
-    wlam0: torch.Tensor,
-    rel: Optional[torch.Tensor],
-    image_h: int,
-    image_w: int,
-    radius: int,
-    grid_stride: int,
-    dof: float,
-    unroll: int,
-    use_tweights: bool,
-    normalize_scale: bool,
-    tolerance: float,
-    lm_lambda0: float,
-    lm_up: float,
-    lm_down: float,
-    lm_lambda_max: float,
-    max_iterations: int,
-    illum_bias: bool = False,
-    illum_affine: bool = False,
-    depth_planes: Optional[torch.Tensor] = None,
-    zgrad: Optional[torch.Tensor] = None,
-    sigma: Optional[float] = None,
-    reference_prior_energy: bool = False,
-    depth_weight: float = 1.0,
-    depth_huber_delta: float = 0.03,
-    n_blocks: int = 1,
-    n_blocks_x: int = 1,
-    radius_y: Optional[int] = None,
-) -> Tuple[torch.Tensor, ...]:
-    """Batched wrapper: one level solved in one launch.
-
-    depth_prev_m / gray_prev (B, H', W') on the strided grid; planes
-    (B, s^2, ph, pw) frozen windows around cu / cv (B,) int32, or with row
-    blocks or tiles (``n_blocks``, ``n_blocks_x``, ``radius_y`` as
-    :func:`lm_level` takes them) (B, blocks, s^2, ph, pw) around cu / cv
-    (B, blocks) or (B, nby, nbx); the rest as :func:`level_inputs`; the
-    depth term and the prior as :func:`lm_level` takes them.  -> (est,
-    anchor, wlam, err, count, iterations, inputs), iterations being the
-    batch maximum (a 0-d int32 tensor) and inputs the kernel's
-    :class:`LevelInputs`.
+def solve_level_fused(inputs: LevelInputs, image_h: int, image_w: int,
+                      **settings) -> Tuple[torch.Tensor, ...]:
+    """One level solved in one launch of :func:`lm_level` on ``inputs``
+    (the scalar row as :func:`level_inputs` builds it; the depth term with
+    ``depth_planes`` and ``zgrad``) under ``settings``, :func:`lm_level`'s
+    other keyword arguments.  -> (est, anchor, wlam, err, count,
+    iterations), iterations being the batch maximum (a 0-d int32 tensor).
     """
-    b = gray_prev.shape[0]
-    points, scal = level_inputs(
-        cu, cv, depth_prev_m, intrinsics, estimate0, anchor0, wlam0, rel,
-        grid_stride,
-    )
-
-    def f32(x):
-        return None if x is None else x.to(torch.float32).contiguous()
-
-    inputs = LevelInputs(
-        f32(planes), points, f32(gray_prev), f32(jac_planes), scal, f32(depth_planes),
-        f32(zgrad),
-    )
-    out = lm_level(
-        *inputs[:5],
-        depth_planes=inputs.depth_planes, zgrad=inputs.zgrad, sigma=sigma,
-        reference_prior_energy=reference_prior_energy, depth_weight=depth_weight,
-        depth_huber_delta=depth_huber_delta,
-        radius=radius, grid_stride=grid_stride, image_h=image_h,
-        image_w=image_w, dof=dof, unroll=unroll, use_tweights=use_tweights,
-        normalize_scale=normalize_scale, tolerance=tolerance,
-        lm_lambda0=lm_lambda0, lm_up=lm_up, lm_down=lm_down,
-        lm_lambda_max=lm_lambda_max, max_iterations=max_iterations,
-        illum_bias=illum_bias, illum_affine=illum_affine,
-        n_blocks=n_blocks, n_blocks_x=n_blocks_x, radius_y=radius_y,
-    )
+    b = inputs.points.shape[0]
+    out = lm_level(*inputs[:5], image_h=image_h, image_w=image_w,
+                   depth_planes=inputs.depth_planes, zgrad=inputs.zgrad, **settings)
     est = out[:, 0:16].reshape(b, 4, 4).clone()
     anchor = out[:, 16:32].reshape(b, 4, 4).clone()
     # The bottom row is structural: write it rather than trust the kernel.
@@ -1086,4 +1022,4 @@ def solve_level_fused(
     est[:, 3, :] = bottom
     anchor[:, 3, :] = bottom
     its = torch.max(out[:, 36]).to(torch.int32)
-    return est, anchor, out[:, 32], out[:, 34], out[:, 35], its, inputs
+    return est, anchor, out[:, 32], out[:, 34], out[:, 35], its

@@ -35,9 +35,9 @@ version (``chip_smoke.level_agrees``).  The inputs come from the
 ``chip_smoke.py`` beside this script and the kernels from whichever package
 is imported, so another checkout's kernels (say, the parent commit unpacked
 under ``out/parent``) are timed on the same inputs by running this script
-without its own directory on the path.  A package whose fused kernel takes
-displacements (``fused_iteration``, before the kernel warped the template
-points itself) gets the displacements and validity of the same pose:
+without its own directory on the path; the inputs are built through that
+package's ``robust.prepare_level`` and ``robust.kernel_settings``, so it
+must have them:
 
     PYTHONPATH=out/parent python3 -P profile_port.py --kernels
 
@@ -134,22 +134,7 @@ def fused_timing(prev, curr, gt, cam, dev, illum):
     """-> (the fused kernel of the imported package on the inputs of
     ``chip_smoke.fused_case``, what it takes)."""
     args, kwargs = cs.fused_case(prev, curr, gt, cam, dev, illum)
-    if hasattr(cs.fused_iter, "fused_evaluation"):
-        return lambda: cs.fused_iter.fused_evaluation(*args, **kwargs), "level inputs"
-    # The displacements and validity of the same pose, the frozen window and
-    # lambda of the same row.
-    planes, points, gray, jac, scal = args
-    cfg = cs.RobustDVOConfig.from_json(cs.CONFIGS / "tpu_fast.json")
-    fl = cs.robust.frozen_level(prev.gray[0], prev.depth_m[0], curr.gray[0], cam.at(0).to(dev),
-                                cs.start_estimates(gt, 0), cfg, 0)
-    du, dv, valid = cs.residual_displacements(fl.u0, fl.v0, fl.cu, fl.cv, kwargs["radius"],
-                                              kwargs["grid_stride"], kwargs["image_h"],
-                                              kwargs["image_w"])
-    fargs = (planes, du.contiguous(), dv.contiguous(), gray,
-             (valid & fl.valid_geom0).to(torch.float32), jac, scal[:, 32:33].contiguous())
-    fkw = {k: kwargs[k] for k in ("radius", "grid_stride", "dof", "unroll", "use_tweights",
-                                  "normalize_scale", "illum_bias")}
-    return lambda: cs.fused_iter.fused_iteration(*fargs, **fkw), "displacements"
+    return lambda: cs.fused_iter.fused_evaluation(*args, **kwargs), "level inputs"
 
 
 def kernel_times(frames, poses, cam, dev) -> None:

@@ -82,19 +82,15 @@ def _frozen(stride: int, device="cpu", batch=2):
     est0 = se3.exp(xi) @ gt
     cfg = dataclasses.replace(CFG, grid_strides=(stride,))
     k_t = cam.at(0).to(device)
-    fl = robust.frozen_level(prev_g, prev_d, curr_g, k_t, est0, cfg, 0)
+    fl = robust.prepare_level(prev_g, prev_d, curr_g, k_t, est0, cfg, 0)
     return cfg, fl, k_t, est0, (h, w)
 
 
-def _kernel_kwargs(cfg, stride, image_hw, illum):
-    return dict(
-        radius=cfg.shift_stack_radius, grid_stride=stride,
-        image_h=image_hw[0], image_w=image_hw[1], dof=cfg.weighter.dof, unroll=3,
-        use_tweights=True, normalize_scale=True, tolerance=cfg.tolerance,
-        lm_lambda0=cfg.lm_lambda0, lm_up=cfg.lm_up, lm_down=cfg.lm_down,
-        lm_lambda_max=cfg.lm_lambda_max, max_iterations=cfg.max_iterations,
-        illum_bias=illum == "bias", illum_affine=illum == "affine",
-    )
+def _kernel_kwargs(cfg, image_hw, illum):
+    """``lm_level``'s keyword arguments: the configuration's level-0 settings
+    on an image of ``image_hw``, under the illumination ``illum``."""
+    return dict(robust.kernel_settings(cfg, 0), image_h=image_hw[0], image_w=image_hw[1],
+                illum_bias=illum == "bias", illum_affine=illum == "affine")
 
 
 @pytest.fixture(scope="module", params=[1, 2], ids=["s1", "s2"])
@@ -110,7 +106,7 @@ def test_level_solver_plain_matches_pallas(level_case, illum, rel):
     wlam0 = torch.full((b,), 0.04)
     relt = None if rel is None else torch.full((b,), rel)
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0, relt, stride)
-    kw = _kernel_kwargs(cfg, stride, image_hw, illum)
+    kw = _kernel_kwargs(cfg, image_hw, illum)
     args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
     before = tlevel.lm_level.launches
     out_t = tlevel.lm_level(*args, **kw).numpy()
@@ -127,10 +123,11 @@ def test_level_solver_plain_matches_pallas(level_case, illum, rel):
     np.testing.assert_array_equal(out_t[:, 37:], out_j[:, 37:])
 
 
-def _fused_kwargs(cfg, stride, image_hw, illum):
-    return dict(radius=cfg.shift_stack_radius, grid_stride=stride, image_h=image_hw[0],
-                image_w=image_hw[1], dof=5.0, unroll=3, use_tweights=True,
-                normalize_scale=True, illum_bias=illum == "bias")
+def _fused_kwargs(cfg, image_hw, illum):
+    """``fused_evaluation``'s keyword arguments: the fused kernel's share of
+    the configuration's level-0 settings, on an image of ``image_hw``."""
+    return dict(tfused.fused_settings(robust.kernel_settings(cfg, 0)), image_h=image_hw[0],
+                image_w=image_hw[1], illum_bias=illum == "bias")
 
 
 def _fused_args(fl, k, pose, wlam, stride):
@@ -163,7 +160,7 @@ def test_fused_iteration_plain_matches_pallas(level_case, illum):
     stride, cfg, fl, k, est0, image_hw = level_case
     wlam = torch.tensor([0.04, 0.02])
     args = _fused_args(fl, k, est0, wlam, stride)
-    kw = _fused_kwargs(cfg, stride, image_hw, illum)
+    kw = _fused_kwargs(cfg, image_hw, illum)
     before = tfused.fused_evaluation.launches
     out_t = tfused.fused_evaluation(*args, **kw).numpy()
     assert tfused.fused_evaluation.launches == before  # CPU tensors: the plain version
@@ -192,7 +189,7 @@ def test_fused_shift_iteration_matches(level_case, illum):
     wrapper (frozen window, its own warp, bias Schur)."""
     stride, cfg, fl, k, est0, image_hw = level_case
     lam0 = torch.tensor([0.04, 0.02])
-    kw = _fused_kwargs(cfg, stride, image_hw, illum)
+    kw = _fused_kwargs(cfg, image_hw, illum)
     inputs = tlevel.LevelInputs(*_fused_args(fl, k, est0, torch.ones(2), stride))
     t = tfused.fused_shift_iteration(inputs, est0, lam0, **kw)
     _, u, v, vg = jresiduals._warp_geometry(
@@ -218,7 +215,7 @@ def test_wrappers_raise_off_cpu_and_cuda():
     z = lambda *shape: torch.zeros(shape, device=meta)  # noqa: E731
     args = (z(b, 1, ph, pw), z(b, 3, hp, wp), z(b, hp, wp), z(b, 6, hp, wp), z(b, 40))
     with pytest.raises(RuntimeError, match="no kernel"):
-        tlevel.lm_level(*args, **_kernel_kwargs(CFG, s, (10, 10), None))
+        tlevel.lm_level(*args, **_kernel_kwargs(CFG, (10, 10), None))
     with pytest.raises(RuntimeError, match="no kernel"):
         tfused.fused_evaluation(*args, radius=r, grid_stride=s, image_h=10, image_w=10)
     with pytest.raises(RuntimeError, match="no kernel"):
@@ -262,7 +259,7 @@ def test_cuda_kernels_match_plain(stride, illum, batch):
     wlam0 = torch.full((b,), 0.04, device="cuda")
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0,
                                        torch.full((b,), 0.01, device="cuda"), stride)
-    kw = _kernel_kwargs(cfg, stride, image_hw, illum)
+    kw = _kernel_kwargs(cfg, image_hw, illum)
     args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
     before = tlevel.lm_level.launches
     out_k = tlevel.lm_level(*args, **kw)
@@ -275,7 +272,7 @@ def test_cuda_kernels_match_plain(stride, illum, batch):
 
     # The fused kernel on the same inputs (bias for "affine": it has no
     # affine variant): valid counts equal, sums within 1e-4 of their largest.
-    fkw = _fused_kwargs(cfg, stride, image_hw, "bias" if illum else None)
+    fkw = _fused_kwargs(cfg, image_hw, "bias" if illum else None)
     before = tfused.fused_evaluation.launches
     fk = tfused.fused_evaluation(*args, **fkw).cpu().numpy()
     assert tfused.fused_evaluation.launches == before + 1
@@ -312,7 +309,7 @@ def test_cuda_level_kernel_every_geometry(stride, illum):
     wlam0 = torch.full((b,), 0.04, device="cuda")
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0,
                                        torch.full((b,), 0.01, device="cuda"), stride)
-    kw = _kernel_kwargs(cfg, stride, image_hw, illum)
+    kw = _kernel_kwargs(cfg, image_hw, illum)
     args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
     out_p = tlevel.lm_level_plain(*args, **kw).cpu()
     for geo in tlevel.geometries(hp, wp, tlevel.LEVEL_KERNEL):
@@ -334,7 +331,7 @@ def test_cuda_fused_kernel_every_geometry(stride, illum):
     cfg, fl, k, est0, image_hw = _frozen(stride, device="cuda", batch=3)
     b, hp, wp = fl.gray_prev.shape
     args = _fused_args(fl, k, est0, torch.full((b,), 0.04, device="cuda"), stride)
-    kw = _fused_kwargs(cfg, stride, image_hw, illum)
+    kw = _fused_kwargs(cfg, image_hw, illum)
     out_p = tfused.fused_evaluation_plain(*args, **kw).cpu()
     for geo in tlevel.geometries(hp, wp, tfused.FUSED_KERNEL):
         out_k = tfused._launch(*args, **kw, geometry=geo).cpu()

@@ -1,14 +1,15 @@
 """The level kernel's row blocks, tiles and anisotropic ball: the plain
 version against the JAX package's Pallas kernel.
 
-``solve_level_fused(..., n_blocks, n_blocks_x, radius_y)`` of the port on
+``solve_level_fused`` of the port (``n_blocks``, ``n_blocks_x``, ``radius_y``
+of ``robust.kernel_settings``) on
 CPU tensors (the plain version, ``lm_level_plain``, on one window per
 block) against the JAX package's ``solve_level_fused`` with the same
 arguments (its slab and tile mosaics, Pallas interpreted), as
 ``test_torch_level_depth_prior.py`` holds the depth term and the prior: a
 seeded synthetic scene seen from a second pose, B=2 on a 30x40 grid, grid
 strides 1 and 2, the solves starting from the truth off by a seeded twist.
-Both packages get the same centres (the port's ``frozen_level`` at the start
+Both packages get the same centres (the port's ``prepare_level`` at the start
 pose; ``test_torch_recenter_blocks.py`` holds them equal to the JAX
 package's) and extract their own windows around them.
 
@@ -78,8 +79,8 @@ def block_case(stride, layout, device="cpu", batch=2):
                               recenter_col_blocks=nbx, shift_stack_radius_y=ry)
     k_t = cam.at(0).to(device)
     plan = robust.level_plan(cfg, 0)
-    assert plan.tiles == (nbx is not None) and plan.blocks == (nbx is None)
-    fl = robust.frozen_level(prev_g, prev_d, curr_g, k_t, est0, cfg, 0, depth_curr=curr_d)
+    assert plan.windows.tiles == (nbx is not None) and plan.windows.rows == (nbx is None)
+    fl = robust.prepare_level(prev_g, prev_d, curr_g, k_t, est0, cfg, 0, depth_curr=curr_d)
     gzx, gzy = gradients.sobel(prev_d)
     zgrad = torch.stack([gzx / 8.0, gzy / 8.0], dim=1)[..., ::stride, ::stride].contiguous()
     return cfg, fl, k_t, est0, (h, w), zgrad, (prev_g, curr_g, curr_d)
@@ -90,40 +91,28 @@ def solve_both(stride, layout, illum, depth):
     one level solve on the same inputs and centres."""
     cfg, fl, k_t, est0, image_hw, zgrad, (_, curr_g, curr_d) = block_case(stride, layout)
     plan = robust.level_plan(cfg, 0)
-    ba = robust.block_args(cfg, plan)
     b = est0.shape[0]
     wlam0 = torch.full((b,), 0.04)
-    kw = _kernel_kwargs(cfg, stride, image_hw, illum)
-    kw.pop("illum_bias"), kw.pop("illum_affine")
-    common = dict(
-        image_h=image_hw[0], image_w=image_hw[1], radius=kw.pop("radius"),
-        grid_stride=stride, dof=kw.pop("dof"), unroll=kw.pop("unroll"),
-        use_tweights=kw.pop("use_tweights"), normalize_scale=kw.pop("normalize_scale"),
-        illum_bias=illum == "bias", illum_affine=illum == "affine",
-        depth_weight=cfg.depth_weight, depth_huber_delta=cfg.depth_huber_delta,
-        **{n: kw[n] for n in ("tolerance", "lm_lambda0", "lm_up", "lm_down", "lm_lambda_max",
-                              "max_iterations")},
-        **ba,
-    )
+    common = _kernel_kwargs(cfg, image_hw, illum)
+    inputs = robust.kernel_inputs(fl, est0, est0, wlam0)._replace(
+        depth_planes=fl.depth_planes if depth else None, zgrad=zgrad if depth else None)
     before = (tlevel.lm_level.launches, tlevel.lm_level.block_launches,
               tlevel.lm_level.tile_launches)
-    out_t = tlevel.solve_level_fused(
-        fl.planes, fl.cu, fl.cv, fl.depth_prev_m, fl.gray_prev, fl.jac_planes, k_t, est0,
-        est0, wlam0, None, depth_planes=fl.depth_planes if depth else None,
-        zgrad=zgrad if depth else None, **common)[:6]
+    out_t = tlevel.solve_level_fused(inputs, **common)
     assert (tlevel.lm_level.launches, tlevel.lm_level.block_launches,
             tlevel.lm_level.tile_launches) == before  # plain version: no kernel
     n = lambda x: jnp.asarray(x.numpy())  # noqa: E731
     cu, cv = fl.cu.numpy(), fl.cv.numpy()
     hp, wp = fl.gray_prev.shape[-2:]
     r = cfg.shift_stack_radius
-    if plan.tiles:
+    blocks = plan.windows
+    if blocks.tiles:
         extract = lambda img: jstack.extract_parity_planes_tiles(  # noqa: E731
-            n(img), cu, cv, hp, wp, r, stride, ba["n_blocks"], ba["n_blocks_x"],
-            radius_y=ba["radius_y"])
+            n(img), cu, cv, hp, wp, r, stride, blocks.n_blocks, blocks.n_blocks_x,
+            radius_y=blocks.radius_y)
     else:
         extract = lambda img: jstack.extract_parity_planes_blocks(  # noqa: E731
-            n(img), cu, cv, hp, wp, r, stride, ba["n_blocks"], radius_y=ba["radius_y"])
+            n(img), cu, cv, hp, wp, r, stride, blocks.n_blocks, radius_y=blocks.radius_y)
     out_j = jlevel.solve_level_fused(
         extract(curr_g), cu, cv, n(fl.depth_prev_m), n(fl.gray_prev), n(fl.jac_planes),
         n(k_t), n(est0), n(est0), n(wlam0), None, interpret=True,
@@ -153,22 +142,23 @@ def test_block_inputs_are_checked():
     cfg, fl, k_t, est0, image_hw, _, _ = block_case(2, "tiles3x4_ry2")
     assert fl.planes.dim() == 5 and fl.planes.shape[1] == 12
     assert len(torch.unique(fl.cu)) > 1  # the tiles really differ
-    kw = _kernel_kwargs(cfg, 2, image_hw, None)
+    kw = _kernel_kwargs(cfg, image_hw, None)
     wlam0 = torch.full((est0.shape[0],), 0.04)
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k_t, est0, est0, wlam0,
                                        None, 2)
     assert scal.shape[1] == tlevel.IN_COLS + 2 * 12
-    out = tlevel.lm_level(fl.planes, points, fl.gray_prev, fl.jac_planes, scal, **kw,
-                          n_blocks=3, n_blocks_x=4, radius_y=2)
+    out = tlevel.lm_level(fl.planes, points, fl.gray_prev, fl.jac_planes, scal,
+                          **dict(kw, n_blocks=3, n_blocks_x=4, radius_y=2))
     assert torch.isfinite(out).all()
     with pytest.raises(ValueError, match="planes has shape"):
-        tlevel.lm_level(fl.planes, points, fl.gray_prev, fl.jac_planes, scal, **kw,
-                        n_blocks=4, radius_y=2)
+        tlevel.lm_level(fl.planes, points, fl.gray_prev, fl.jac_planes, scal,
+                        **dict(kw, n_blocks=4, n_blocks_x=1, radius_y=2))
     with pytest.raises(ValueError, match="scal has shape"):
         tlevel.lm_level(fl.planes, points, fl.gray_prev, fl.jac_planes,
-                        scal[:, :40].contiguous(), **kw, n_blocks=3, n_blocks_x=4, radius_y=2)
+                        scal[:, :40].contiguous(), **dict(kw, n_blocks=3, n_blocks_x=4, radius_y=2))
     with pytest.raises(ValueError, match="needs row blocks or tiles"):
-        tlevel.lm_level(fl.planes, points, fl.gray_prev, fl.jac_planes, scal, **kw, radius_y=2)
+        tlevel.lm_level(fl.planes, points, fl.gray_prev, fl.jac_planes, scal,
+                        **dict(kw, n_blocks=1, n_blocks_x=1, radius_y=2))
 
 
 @pytest.mark.cuda
@@ -183,16 +173,15 @@ def test_cuda_block_kernel_matches_plain(stride, layout, illum, depth, batch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU build")
     cfg, fl, k_t, est0, image_hw, zgrad, _ = block_case(stride, layout, "cuda", batch)
-    ba = robust.block_args(cfg, robust.level_plan(cfg, 0))
     wlam0 = torch.full((batch,), 0.04, device="cuda")
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k_t, est0, est0, wlam0,
                                        None, stride)
-    kw = dict(_kernel_kwargs(cfg, stride, image_hw, illum), **ba)
+    kw = _kernel_kwargs(cfg, image_hw, illum)
     if depth:
         kw.update(depth_planes=fl.depth_planes, zgrad=zgrad, depth_weight=cfg.depth_weight,
                   depth_huber_delta=cfg.depth_huber_delta)
     args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
-    counter = "tile_launches" if ba["n_blocks_x"] > 1 else "block_launches"
+    counter = "tile_launches" if kw["n_blocks_x"] > 1 else "block_launches"
     before = getattr(tlevel.lm_level, counter)
     out_k = tlevel.lm_level(*args, **kw)
     assert getattr(tlevel.lm_level, counter) == before + 1

@@ -73,7 +73,7 @@ def depth_case(stride: int, device="cpu", batch=2):
     anchor0 = se3.exp(torch.tensor(ANCHOR_XI, device=device)).expand(batch, 4, 4)
     cfg = dataclasses.replace(CFG, grid_strides=(stride,))
     k_t = cam.at(0).to(device)
-    fl = robust.frozen_level(prev_g, prev_d, curr_g, k_t, est0, cfg, 0, depth_curr=curr_d)
+    fl = robust.prepare_level(prev_g, prev_d, curr_g, k_t, est0, cfg, 0, depth_curr=curr_d)
     gzx, gzy = gradients.sobel(prev_d)
     zgrad = torch.stack([gzx / 8.0, gzy / 8.0], dim=1)[..., ::stride, ::stride].contiguous()
     wlam0 = torch.full((batch,), 0.04, device=device)
@@ -120,7 +120,7 @@ def assert_rows_match(out_t, out_j):
 def test_level_solver_prior_matches_pallas(case, prior):
     stride, cfg, args, _, _, image_hw = case
     sigma, ref = PRIORS[prior]
-    kw = dict(_kernel_kwargs(cfg, stride, image_hw, None), sigma=sigma,
+    kw = dict(_kernel_kwargs(cfg, image_hw, None), sigma=sigma,
               reference_prior_energy=ref)
     assert_rows_match(*run_both(args, kw))
 
@@ -128,7 +128,7 @@ def test_level_solver_prior_matches_pallas(case, prior):
 @pytest.mark.parametrize("illum", [None, "bias", "affine"], ids=["no_illum", "bias", "affine"])
 def test_level_solver_depth_matches_pallas(case, illum):
     stride, cfg, args, depth_planes, zgrad, image_hw = case
-    kw = dict(_kernel_kwargs(cfg, stride, image_hw, illum), depth_planes=depth_planes,
+    kw = dict(_kernel_kwargs(cfg, image_hw, illum), depth_planes=depth_planes,
               zgrad=zgrad, depth_weight=cfg.depth_weight,
               depth_huber_delta=cfg.depth_huber_delta)
     assert_rows_match(*run_both(args, kw))
@@ -138,20 +138,20 @@ def test_level_solver_depth_matches_pallas(case, illum):
 def test_terms_bind(case, term):
     """A binding prior and a heavy depth term move the plain solve."""
     stride, cfg, args, depth_planes, zgrad, image_hw = case
-    kw = _kernel_kwargs(cfg, stride, image_hw, None)
+    kw = _kernel_kwargs(cfg, image_hw, None)
     off = tlevel.lm_level(*args, **kw)
     if term == "prior":
-        on = tlevel.lm_level(*args, **kw, sigma=1e-9)
+        on = tlevel.lm_level(*args, **dict(kw, sigma=1e-9))
     else:
-        on = tlevel.lm_level(*args, **kw, depth_planes=depth_planes, zgrad=zgrad,
-                             depth_weight=1e7, depth_huber_delta=1e4)
+        on = tlevel.lm_level(*args, **dict(kw, depth_planes=depth_planes, zgrad=zgrad,
+                                           depth_weight=1e7, depth_huber_delta=1e4))
     assert torch.isfinite(on).all()
     assert float((on[:, :12] - off[:, :12]).abs().max()) > 1e-6
 
 
 def test_depth_inputs_come_together(case):
     stride, cfg, args, depth_planes, zgrad, image_hw = case
-    kw = _kernel_kwargs(cfg, stride, image_hw, None)
+    kw = _kernel_kwargs(cfg, image_hw, None)
     with pytest.raises(ValueError, match="together"):
         tlevel.lm_level(*args, **kw, depth_planes=depth_planes)
     with pytest.raises(ValueError, match="zgrad has shape"):
@@ -171,7 +171,7 @@ def test_cuda_depth_prior_match_plain(stride, variant, batch):
         pytest.skip("needs a CUDA GPU: the kernels have no CPU build")
     cfg, args, depth_planes, zgrad, image_hw = depth_case(stride, device="cuda", batch=batch)
     illum = variant.split("_")[1] if variant in ("depth_bias", "depth_affine") else None
-    kw = _kernel_kwargs(cfg, stride, image_hw, illum)
+    kw = _kernel_kwargs(cfg, image_hw, illum)
     if variant.startswith("depth"):
         kw.update(depth_planes=depth_planes, zgrad=zgrad, depth_weight=cfg.depth_weight,
                   depth_huber_delta=cfg.depth_huber_delta)

@@ -157,8 +157,8 @@ def test_block_windows_sample_alike(kind, radii, stride):
             i, a, b, HP, WP, r, s, nb, radius_y=ry))(image, cu, cv))
         # (B, s^2, nby*slab_h, pw) -> [b, k, 0] = (s^2, slab_h, pw)
         win = jpl.reshape(B, s * s, nby, t_y + halo_y, -1).transpose(0, 2, 1, 3, 4)[:, :, None]
-        tpl = tblock.extract_parity_planes_blocks(_t(image), _t(cu), _t(cv), HP, WP, r, s, nb,
-                                                  radius_y=ry)
+        tpl = tblock.window_planes(_t(image), _t(cu), _t(cv), HP, WP, r, s,
+                                   tblock.Blocks(nb, 1, ry))
         layout = tshift.window_layout(HP, WP, r, s, nb, 1, ry)
     else:
         nb, nbxc = (int(x) for x in kind[5:].split("x"))
@@ -171,8 +171,8 @@ def test_block_windows_sample_alike(kind, radii, stride):
         # (B, s^2, nby*slab_h, nbx*slab_w) -> [b, k, l] = (s^2, slab_h, slab_w)
         win = jpl.reshape(B, s * s, nby, t_y + halo_y, nbx, t_x + halo_x).transpose(
             0, 2, 4, 1, 3, 5)
-        tpl = tblock.extract_parity_planes_tiles(_t(image), _t(cu), _t(cv), HP, WP, r, s, nb,
-                                                 nbxc, radius_y=ry)
+        tpl = tblock.window_planes(_t(image), _t(cu), _t(cv), HP, WP, r, s,
+                                   tblock.Blocks(nb, nbxc, ry))
         layout = tshift.window_layout(HP, WP, r, s, nb, nbxc, ry)
     assert (layout.nby, layout.t_y, layout.nbx, layout.t_x) == (nby, t_y, nbx, t_x)
     assert tuple(tpl.shape) == (B, nby * nbx, s * s, t_y + halo_y, t_x + halo_x)

@@ -168,7 +168,7 @@ def test_shift_jacobian_matches_jax(case, esm):
         **data, "illumination": "affine", "use_esm_gradients": esm,
         "esm_levels": [0], "grid_strides": [s, 2, 1, 1],
     })
-    fl = trobust.frozen_level(gp, dp, case["gray_curr"], k, case["transform"], cfg, 0)
+    fl = trobust.prepare_level(gp, dp, case["gray_curr"], k, case["transform"], cfg, 0)
     g1x_s, g1y_s = trobust._template_gradients(
         gp, dp, case["gray_curr"], k, case["transform"], cfg, 0
     )
@@ -179,6 +179,7 @@ def test_shift_jacobian_matches_jax(case, esm):
         _jx(gp), _jx(dp), _jx(k), _jx(gx1 / sgain), _jx(gy1 / sgain)
     )[:, ::s, ::s, :]
     _assert_close(jac, j_jac)
+    assert torch.equal(fl.pre_jac, jac)  # the level's "shift" evaluations take it
     # At the ESM level the level's own planes differ from it.
     differs = not torch.equal(jac, fl.jac_planes.permute(0, 2, 3, 1))
     assert differs == esm

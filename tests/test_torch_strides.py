@@ -93,7 +93,7 @@ def frozen(stride, device="cpu", batch=2):
     est0 = se3.exp(torch.as_tensor(xi, dtype=torch.float32, device=device)) @ gt
     cfg = dataclasses.replace(CFG, grid_strides=(stride,))
     k_t = cam.at(0).to(device)
-    fl = robust.frozen_level(prev_g, prev_d, curr_g, k_t, est0, cfg, 0)
+    fl = robust.prepare_level(prev_g, prev_d, curr_g, k_t, est0, cfg, 0)
     assert tuple(fl.gray_prev.shape[-2:]) == (GRID_H, GRID_W)
     return cfg, fl, k_t, est0, (h, w)
 
@@ -231,8 +231,8 @@ def test_block_windows_sample_alike(s, kind):
         jpl = np.asarray(jax.jit(lambda i, a, c: jstack.extract_parity_planes_blocks(
             i, a, c, hp, wp, r, s, 6, radius_y=ry))(image, cu, cv))
         win = jpl.reshape(b, s * s, nby, t_y + halo_y, -1).transpose(0, 2, 1, 3, 4)[:, :, None]
-        tpl = tblock.extract_parity_planes_blocks(_t(image), _t(cu), _t(cv), hp, wp, r, s, 6,
-                                                  radius_y=ry)
+        tpl = tblock.window_planes(_t(image), _t(cu), _t(cv), hp, wp, r, s,
+                                   tblock.Blocks(6, 1, ry))
         layout = tshift.window_layout(hp, wp, r, s, 6, 1, ry)
     else:
         nby, t_y, halo_y, nbx, t_x, halo_x = jstack.tile_layout(hp, wp, 3, 4, r, ry, s)
@@ -242,8 +242,8 @@ def test_block_windows_sample_alike(s, kind):
             i, a, c, hp, wp, r, s, 3, 4, radius_y=ry))(image, cu, cv))
         win = jpl.reshape(b, s * s, nby, t_y + halo_y, nbx, t_x + halo_x).transpose(
             0, 2, 4, 1, 3, 5)
-        tpl = tblock.extract_parity_planes_tiles(_t(image), _t(cu), _t(cv), hp, wp, r, s, 3, 4,
-                                                 radius_y=ry)
+        tpl = tblock.window_planes(_t(image), _t(cu), _t(cv), hp, wp, r, s,
+                                   tblock.Blocks(3, 4, ry))
         layout = tshift.window_layout(hp, wp, r, s, 3, 4, ry)
     assert (halo_y, halo_x) == (2 * ry // s, 2 * r // s)
     assert (layout.nby, layout.t_y, layout.nbx, layout.t_x) == (nby, t_y, nbx, t_x)
@@ -262,7 +262,7 @@ def test_level_solver_plain_matches_pallas(level_case, illum):
     wlam0 = torch.full((b,), 0.04)
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam0,
                                        torch.full((b,), 0.01), stride)
-    kw = _kernel_kwargs(cfg, stride, image_hw, illum)
+    kw = _kernel_kwargs(cfg, image_hw, illum)
     args = (fl.planes, points, fl.gray_prev, fl.jac_planes, scal)
     before = tlevel.lm_level.launches
     out_t = tlevel.lm_level(*args, **kw).numpy()
@@ -285,7 +285,7 @@ def test_fused_evaluation_plain_matches_pallas(level_case, illum):
     wlam = torch.tensor([0.04, 0.02])
     points, scal = tlevel.level_inputs(fl.cu, fl.cv, fl.depth_prev_m, k, est0, est0, wlam,
                                        None, stride)
-    kw = _fused_kwargs(cfg, stride, image_hw, illum)
+    kw = _fused_kwargs(cfg, image_hw, illum)
     before = tfused.fused_evaluation.launches
     out_t = tfused.fused_evaluation(fl.planes, points, fl.gray_prev, fl.jac_planes, scal,
                                     **kw).numpy()
@@ -362,12 +362,12 @@ def test_cuda_stride_kernels_match_plain(s, batch):
     want = tshift.tent_sample(fl.planes, du, dv, cfg.shift_stack_radius, s)
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
     for illum in (None, "bias", "affine"):
-        kw = _kernel_kwargs(cfg, s, image_hw, illum)
+        kw = _kernel_kwargs(cfg, image_hw, illum)
         out_k, out_p = tlevel.lm_level(*args, **kw), tlevel.lm_level_plain(*args, **kw)
         np.testing.assert_array_equal(out_k[:, 36].cpu(), out_p[:, 36].cpu())
         np.testing.assert_allclose(out_k[:, :32].cpu(), out_p[:, :32].cpu(), atol=1e-5)
     for illum in (None, "bias"):
-        kw = _fused_kwargs(cfg, s, image_hw, illum)
+        kw = _fused_kwargs(cfg, image_hw, illum)
         out_k = tfused.fused_evaluation(*args, **kw).cpu().numpy()
         out_p = tfused.fused_evaluation_plain(*args, **kw).cpu().numpy()
         assert np.abs(out_k - out_p).max() <= 1e-4 * np.abs(out_p).max()
