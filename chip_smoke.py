@@ -111,7 +111,11 @@ Phases, each printing one JSON line:
    the same frames and poses (fields equal but for a bounded share of tie
    voxels); the splat and march renders of (a)'s volume and the brick march
    of (b)'s at frame 0's pose on the card and on the CPU from one volume
-   (``MAPPING_RENDER_SHARE`` of the pixels within tolerance); the level and
+   (``MAPPING_RENDER_SHARE`` of the pixels within tolerance); at
+   ``KINFU512``, the fusion kernel and the volume march kernel against their
+   plain versions bit for bit, timed beside their bounds, and a KinectFusion
+   tracker over the 30 frames whose every render launches the march
+   kernel once (spans, ``map.render_kernel`` and launches agree); the level and
    fused kernels must launch in (c)-(e); it prints fusion ms a frame, render
    ms at 640x480, the track-model steps' median ms, frames/s and host reads
    of a step, mesh extraction s, vertices and faces, bricks used and dropped
@@ -1775,6 +1779,7 @@ def render_parts(card, cpu, splat: bool) -> dict:
 KINFU512 = dict(dims=(512, 512, 512), voxel_size=3.0 / 512, origin=(-1.5, -1.5, 0.3),
                 truncation=0.03, max_weight=128.0)
 KINFU512_FUSIONS = 4
+KINFU512_RENDERS = 4  # the march check renders at the poses of frames 1 to 4
 
 
 def check_tsdf_kernel(frames, poses, k, dev) -> dict:
@@ -1819,6 +1824,134 @@ def check_tsdf_kernel(frames, poses, k, dev) -> dict:
             "bound_ms": bound_ms, "bound_by": "bytes", "roofline_pct": 100.0 * bound_ms / ms}
 
 
+def march_voxels(volume, k, pose, cfg, shape, n_steps: int, step: float, depth,
+                 min_weight: float = 1.0, max_depth: float = 10.0):
+    """-> (the distinct voxels that the volume march samples from ``pose``,
+    each ray up to its first crossing (that sample included), the distinct
+    corners of the trilinear gray at the render's hits ``depth``): what a
+    render has to read of the tsdf and the weight, and of the gray, at
+    least.  The sphere-tracing steps' taps that fall outside the sampled
+    voxels are left out, so the bound is low."""
+    from dense_visual_odometry_torch.models import tsdf
+
+    dev = volume.tsdf.device
+    d, hh, ww = cfg.dims
+    rays = tsdf.pixel_rays(k, pose, shape)
+    t_in = tsdf.volume_ray_entry(cfg, rays, max_depth).reshape(-1)
+    origin = torch.tensor(cfg.origin, dtype=torch.float32, device=dev)
+    base = ((rays.origin - origin) / cfg.voxel_size - 0.5)[:, None]
+    slope = torch.stack([rays.dwx, rays.dwy, rays.dwz]).reshape(3, -1) / cfg.voxel_size
+    top = torch.tensor([ww - 1, hh - 1, d - 1], dtype=torch.float32, device=dev)[:, None]
+    stride = torch.tensor([1, ww, hh * ww], dtype=torch.int64, device=dev)[:, None]
+    phi_field = torch.where(volume.weight >= min_weight, volume.tsdf,
+                            torch.ones_like(volume.tsdf)).reshape(-1)
+    alive = torch.ones_like(t_in, dtype=torch.bool)
+    prev, read = None, []
+    for i in range(n_steps + 1 if n_steps > 0 else 0):
+        f = torch.round(base + slope * (t_in + step * i))
+        inside = ((f >= 0.0) & (f <= top)).all(0)
+        flat = (torch.minimum(torch.clamp(f, min=0.0), top).long() * stride).sum(0)
+        phi = torch.where(inside, phi_field[flat], torch.ones_like(t_in))
+        read.append(flat[alive & inside])
+        if prev is not None:
+            alive &= ~((phi < 0.0) & (prev >= 0.0))
+        prev = phi
+    voxels = int(torch.unique(torch.cat(read)).numel()) if read else 0
+    hit = (depth > 0).reshape(-1)
+    corners = [((iz * hh + iy) * ww + ix).reshape(-1)[hit]
+               for ix, iy, iz, _ in tsdf.trilinear_corners(cfg, rays, depth)]
+    return voxels, int(torch.unique(torch.cat(corners)).numel())
+
+
+def check_raycast_kernel(frames, poses, k, dev) -> dict:
+    """The volume march kernel against the plain march
+    (``tsdf.raycast_view_march_volume_plain``) at KINFU512: the first
+    KINFU512_FUSIONS ``frames`` fused at ``poses`` (relative to the first),
+    then a render by both at the poses of frames 1 to KINFU512_RENDERS, depth
+    and gray equal bit for bit and one launch a render; then the kernel's
+    and the plain march's device time (after an L2 flush) and host-to-host
+    time of the last render, against a bound by bytes: one read of the tsdf
+    and the weight of every distinct voxel that the rays sample up to their
+    crossing and of the gray at the hits' trilinear corners
+    (``march_voxels``), and the two images written, at 3.35 TB/s."""
+    from dense_visual_odometry_torch.models import tsdf
+    from dense_visual_odometry_torch.ops.cuda.tsdf import raycast_volume
+
+    cfg = tsdf.TSDFConfig(**KINFU512)
+    vol = tsdf.make_volume(cfg, dev)
+    k_dev = torch.as_tensor(np.asarray(k, np.float32), device=dev)
+    first = np.linalg.inv(poses[0])
+    rel = [first @ pose for pose in poses]
+    for (depth_m, gray), pose in zip(frames[:KINFU512_FUSIONS], rel):
+        tsdf.integrate(vol, *(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                              for a in (depth_m, gray)), k_dev,
+                       torch.as_tensor(np.asarray(pose, np.float32), device=dev), cfg)
+    shape = tuple(np.asarray(frames[0][0]).shape)
+    step = tsdf.VOLUME_MARCH_STEP * cfg.truncation
+    equal, launched, steps, valid = [], [], [], []
+    for pose in rel[1:1 + KINFU512_RENDERS]:
+        n = tsdf.volume_march_steps(cfg, pose, step)
+        pose_dev = torch.as_tensor(np.asarray(pose, np.float32), device=dev)
+        args = (vol, k_dev, pose_dev, cfg, shape, n, step)
+        before = raycast_volume.launches
+        out = tsdf.raycast_view_march_volume(*args)
+        launched.append(raycast_volume.launches - before)
+        ref = tsdf.raycast_view_march_volume_plain(*args)
+        torch.cuda.synchronize()
+        equal.append(all(bit_equal(a, b) for a, b in zip(out, ref)))
+        steps.append(n)
+        valid.append(float((out[0] > 0).double().mean()))
+    ms = time_ms(lambda: tsdf.raycast_view_march_volume(*args), 20, dev)
+    plain_ms = time_ms(lambda: tsdf.raycast_view_march_volume_plain(*args), 5, dev)
+    host_ms = wall_ms(lambda: tsdf.raycast_view_march_volume(*args), 10, dev)
+    plain_host_ms = wall_ms(lambda: tsdf.raycast_view_march_volume_plain(*args), 5, dev)
+    voxels, gray_voxels = march_voxels(vol, k_dev, pose_dev, cfg, shape, n, step, out[0])
+    nbytes = 8 * voxels + 4 * gray_voxels + 8 * shape[0] * shape[1]
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"phase": "kernel", "kernel": "raycast_volume", "dims": list(cfg.dims),
+            "frame": list(shape), "fusions": KINFU512_FUSIONS, "steps": steps,
+            "valid_share": valid, "bit_equal": equal, "launches": launched,
+            "ok": all(equal) and launched == [1] * len(equal), "ms": ms, "plain_ms": plain_ms,
+            "host_ms": host_ms, "plain_host_ms": plain_host_ms, "voxels_read": voxels,
+            "gray_voxels_read": gray_voxels,
+            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": "bytes",
+            "roofline_pct": 100.0 * bound_ms / ms}
+
+
+def check_render_path(frames, k, dev) -> dict:
+    """The main path's renders at KINFU512: a KinectFusion tracker
+    (``FrameToModelTracker``, a volume-march render every frame) over
+    ``frames`` on the card, traced, with the launch counts zeroed just
+    before.  Every ``map.render`` span must have launched the march kernel
+    once: ``map.render_kernel``, ``raycast_volume.launches`` and the spans
+    agree, one a frame after the first."""
+    from dense_visual_odometry_torch.models import frame_to_model, tsdf
+    from dense_visual_odometry_torch.ops.cuda.tsdf import raycast_volume
+    from dense_visual_odometry_torch.utils import profiling
+
+    policy = frame_to_model.ModelTrackerPolicy(render_every_frame=True, raycast="volume")
+    tracker = frame_to_model.FrameToModelTracker(
+        CameraModel.create(np.asarray(k, np.float32), 1.0), config(MAPPING_CONFIG),
+        tsdf.TSDFConfig(**KINFU512), policy, device=dev)
+    profiling.disable_tracing()
+    profiling.drain()
+    zero_launches()
+    profiling.enable_tracing()
+    try:
+        for depth_m, gray in frames:
+            tracker.step(gray, depth_m)
+    finally:
+        profiling.disable_tracing()
+    drained = profiling.drain()
+    spans = sum(s["name"] == "map.render" for s in drained["spans"])
+    counted = drained["counters"].get("map.render_kernel", 0)
+    launches = raycast_volume.launches
+    return {"phase": "kernel", "path": "kinfu_render", "dims": list(KINFU512["dims"]),
+            "frames": len(frames), "render_spans": spans, "render_kernel": counted,
+            "launches": launches, "failures": tracker.failures,
+            "ok": spans == counted == launches == len(frames) - 1}
+
+
 class _StepReads:
     """Counts the host reads of one ``FrameToModelTracker.step`` (the
     ``at``-th call) while installed."""
@@ -1852,7 +1985,9 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
     phase 5's directory, each held to MAPPING_BOUNDS; (a)'s and (b)'s fusion
     repeated on the CPU from the same frames and poses; the splat and march
     renders of (a)'s final volume and the brick march of (b)'s at frame 0's
-    pose on the card and on the CPU from one volume.  The launch counts are
+    pose on the card and on the CPU from one volume; on the card, the
+    KINFU512 kernels against their plain versions and a KinectFusion
+    tracker's renders through the march kernel.  The launch counts are
     zeroed just before and read just after each run; the level and fused
     kernels must launch in (c)-(e).  Raises on any failed check."""
     from dense_visual_odometry_torch.apps import reconstruct
@@ -1922,6 +2057,17 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
                                                  recs["dense"].fused_poses,
                                                  recs["dense"].intrinsics, dev)
 
+    # The volume march kernel against the plain march on the card at 512^3.
+    if dev.type == "cuda":
+        out["raycast_kernel"] = check_raycast_kernel(recs["dense"].frames,
+                                                     recs["dense"].fused_poses,
+                                                     recs["dense"].intrinsics, dev)
+
+    # A KinectFusion tracker's renders at 512^3 go through the kernel.
+    if dev.type == "cuda":
+        out["render_path"] = check_render_path(recs["dense"].frames,
+                                               recs["dense"].intrinsics, dev)
+
     # Renders of the final volumes at frame 0's pose, card and CPU.
     eye = np.eye(4, dtype=np.float32)
     renders = {
@@ -1952,6 +2098,17 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
         print(f"mapping fusion kernel at {f['dims']}: {f['ms']} ms a fusion against a "
               f"{f['bound_ms']} ms bound ({f['roofline_pct']}%), plain {f['plain_ms']} ms, "
               f"bit for bit {f['bit_equal']} [{smi}]", flush=True)
+    r = out.get("raycast_kernel")
+    if r is not None:
+        print(f"mapping march kernel at {r['dims']}: {r['ms']} ms a render against a "
+              f"{r['bound_ms']} ms bound ({r['roofline_pct']}%), plain {r['plain_ms']} ms; host "
+              f"to host {r['host_ms']} ms, plain {r['plain_host_ms']} ms; bit for bit "
+              f"{r['bit_equal']} [{smi}]", flush=True)
+    r = out.get("render_path")
+    if r is not None:
+        print(f"mapping kinfu renders at {r['dims']}: {r['render_spans']} map.render spans, "
+              f"{r['render_kernel']} map.render_kernel, {r['launches']} march kernel launches "
+              f"over {r['frames']} frames", flush=True)
     b = out["runs"]["brick"]
     print(f"mapping bricks: {b['bricks_used']} used of {b['pool']}, {b['bricks_dropped']} dropped",
           flush=True)
@@ -2000,6 +2157,12 @@ def run_mapping(dev, root: Path, smi: str) -> dict:
     if dev.type == "cuda" and not out["fusion_kernel"]["ok"]:
         raise AssertionError(f"mapping: the fusion kernel parts from the plain version: "
                              f"{out['fusion_kernel']}")
+    if dev.type == "cuda" and not out["raycast_kernel"]["ok"]:
+        raise AssertionError(f"mapping: the march kernel parts from the plain march: "
+                             f"{out['raycast_kernel']}")
+    if dev.type == "cuda" and not out["render_path"]["ok"]:
+        raise AssertionError(f"mapping: a KinectFusion render missed the march kernel: "
+                             f"{out['render_path']}")
     return out
 
 
@@ -2883,7 +3046,7 @@ def run_distributed(frames, poses, k_dev, grays, depths, k_np, dev, smi) -> dict
 def zero_launches() -> None:
     """Every launch count of the port's kernels to 0."""
     from dense_visual_odometry_torch.ops.cuda.pyramid import median_pyr_down
-    from dense_visual_odometry_torch.ops.cuda.tsdf import integrate_volume
+    from dense_visual_odometry_torch.ops.cuda.tsdf import integrate_volume, raycast_volume
 
     lm_level.launches = 0
     lm_level.block_launches = 0
@@ -2893,6 +3056,7 @@ def zero_launches() -> None:
         fn.runtime_stride_launches = 0
     median_pyr_down.launches = 0
     integrate_volume.launches = 0
+    raycast_volume.launches = 0
 
 
 def read_launches():

@@ -27,8 +27,9 @@ With the tracer on (``utils/profiling.py``) a step records ``session.step``
 pyramids), ``map.track`` (the frame's preprocessing and the solve, the
 tracker's ``track.*`` spans inside), ``sync.map`` (the pack's read) and
 ``map.fuse``, and counts ``map.fused``, ``map.fused_kernel`` (the fusions
-that launched the fusion kernel), ``map.failed``, ``map.march_steps`` (the
-volume march's steps) and ``map.voxels_fused`` (the voxels a fusion
+that launched the fusion kernel), ``map.render_kernel`` (the renders that
+launched the volume march's kernel), ``map.failed``, ``map.march_steps``
+(the volume march's steps) and ``map.voxels_fused`` (the voxels a fusion
 visits).
 """
 
@@ -119,9 +120,12 @@ class ModelTrackerPolicy:
 def _render_keyframe(volume, intrinsics, pose, cfg: RobustDVOConfig, tsdf_cfg, shape,
                      min_weight: float, max_depth: float, raycast: str = "splat",
                      march=None) -> FrameData:
-    """Raycast the volume into a virtual keyframe's pyramids."""
+    """Raycast the volume into a virtual keyframe's pyramids; counts
+    ``map.render_kernel`` where the render launched the march kernel."""
+    launches = tsdf_kernel.raycast_volume.launches
     depth, gray = _vol_render(volume, intrinsics, pose, tsdf_cfg, shape, min_weight,
                               max_depth, raycast, march)
+    count("map.render_kernel", tsdf_kernel.raycast_volume.launches - launches)
     return FrameData(gray=pyr_ops.build_pyramid(gray, cfg.levels),
                      depth_m=pyr_ops.build_pyramid(depth, cfg.levels))
 

@@ -14,6 +14,9 @@ Counterpart of ``dense_visual_odometry_tpu/models/tsdf.py``:
   and gray, then the winner's depth) and valid-aware 3x3 fill passes;
   :func:`raycast_view_march` marches every ray in fixed steps with nearest
   sampling, a linear crossing and two trilinear sphere-tracing steps;
+  :func:`raycast_view_march_volume` marches each ray's stretch inside the
+  volume: on the GPU one launch of ``ops/cuda/csrc/raycast_volume.cu``, on
+  the CPU :func:`raycast_view_march_volume_plain`;
 - mesh extraction runs on the host in numpy: marching tetrahedra over the
   6-tet cube decomposition, winding made consistent against the SDF
   gradient.
@@ -593,12 +596,38 @@ def raycast_view_march_volume(
     same pose covers the volume's depth span); samples outside the volume
     read as free space.  The first positive-to-negative crossing, its
     linear localisation, the two sphere-tracing steps on the trilinear
-    field and the trilinear gray are :func:`raycast_view_march`'s.  The
-    steps are taken :data:`MARCH_CHUNK` at a time as one batch of samples.
+    field and the trilinear gray are :func:`raycast_view_march`'s.
+
+    A CPU volume takes :func:`raycast_view_march_volume_plain`; any other
+    goes to the kernel (``ops/cuda/tsdf.py``), which takes CUDA volumes
+    (float32, contiguous) and raises on the rest.  The two agree bit for bit.
 
     pose : (4, 4) camera-to-world.  -> (depth_m (H, W) f32 with 0 = no
     surface, gray (H, W) f32).
     """
+    dev = volume.tsdf.device
+    intrinsics, pose = _f32(intrinsics, dev), _f32(pose, dev)
+    if dev.type == "cpu":
+        return raycast_view_march_volume_plain(volume, intrinsics, pose, cfg, shape, n_steps,
+                                               step, min_weight, max_depth)
+    return tsdf_kernel.raycast_volume(volume, intrinsics, pose, cfg, shape, n_steps, step,
+                                      min_weight, max_depth, volume_box(cfg))
+
+
+def raycast_view_march_volume_plain(
+    volume: TSDFVolume,
+    intrinsics,
+    pose,
+    cfg: TSDFConfig,
+    shape: Tuple[int, int],
+    n_steps: int,
+    step: float,
+    min_weight: float = 1.0,
+    max_depth: float = 10.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`raycast_view_march_volume` in plain PyTorch, on any device.
+    The steps are taken :data:`MARCH_CHUNK` at a time as one batch of
+    samples."""
     h, w = shape
     d, hh, ww = cfg.dims
     dev = volume.tsdf.device

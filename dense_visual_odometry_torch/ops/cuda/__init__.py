@@ -5,9 +5,11 @@
   system, on the level kernel's inputs.
 - ``stackwarp``: the frozen window sampled at per-pixel displacements.
 - ``pyramid``: one image-pyramid step, the 3x3 median at the kept pixels.
-- ``tsdf``: one frame fused into a whole dense TSDF volume, in place.
+- ``tsdf``: one frame fused into a whole dense TSDF volume, in place; a
+  view of the volume rendered by the volume march.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
-version for CPU tensors (``tsdf``'s caller, ``models/tsdf.py integrate``,
-does that for it); each counts its launches in ``<wrapper>.launches``.
+version for CPU tensors (``tsdf``'s callers in ``models/tsdf.py``,
+``integrate`` and ``raycast_view_march_volume``, do that for it); each
+counts its launches in ``<wrapper>.launches``.
 """

@@ -168,7 +168,8 @@ def _launches() -> Dict[str, int]:
             "fused_evaluation.launches": fused_iter.fused_evaluation.launches,
             "stack_accumulate.launches": stackwarp.stack_accumulate.launches,
             "median_pyr_down.launches": pyramid.median_pyr_down.launches,
-            "integrate_volume.launches": tsdf.integrate_volume.launches}
+            "integrate_volume.launches": tsdf.integrate_volume.launches,
+            "raycast_volume.launches": tsdf.raycast_volume.launches}
 
 
 def enable_tracing() -> None:
@@ -193,7 +194,8 @@ def drain() -> dict:
     attributes it was given; a span still open stays for the next drain.
     The counters hold ``spans.dropped`` and the kernel wrappers' launches
     (``lm_level.launches``, ``fused_evaluation.launches``,
-    ``stack_accumulate.launches``, ``median_pyr_down.launches``) since
+    ``stack_accumulate.launches``, ``median_pyr_down.launches``,
+    ``integrate_volume.launches``, ``raycast_volume.launches``) since
     tracing was enabled or last drained."""
     rec = _rec
     spans = [s.as_dict() for s in rec.spans if s.end_ns is not None]

@@ -357,4 +357,4 @@ def test_drain_clears_and_caps(tracer, monkeypatch):
     assert tp.drain() == {"spans": [], "counters": {
         "spans.dropped": 0, "lm_level.launches": 0, "fused_evaluation.launches": 0,
         "stack_accumulate.launches": 0, "median_pyr_down.launches": 0,
-        "integrate_volume.launches": 0}}
+        "integrate_volume.launches": 0, "raycast_volume.launches": 0}}
